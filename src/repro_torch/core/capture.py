@@ -1,0 +1,372 @@
+"""Capture layer: any PyTorch callable -> aten graph -> HLO text -> SimOp IR.
+
+The paper's section III-A adapted to eager PyTorch, and the port's
+counterpart of ``repro.core.capture``.  Three steps:
+
+1. ``make_fx(fn, tracing_mode="fake")`` traces ``fn`` on fake copies of the
+   example arguments: forward, ``torch.autograd.grad`` and the optimizer
+   update all land in one aten graph, and each hand-kernel op
+   (``repro_torch::tiled_matmul``, ``repro_torch::winograd_tiles``) is one
+   node in it, forward and backward.
+2. Every node is emitted as HLO text in the subset that
+   :func:`~repro_torch.core.hlo_ir.parse_hlo_module` reads: one
+   instruction per aten or custom-op node, ``parameter``s for the inputs,
+   and a ``ROOT tuple`` of the outputs.
+3. The text is parsed by that same parser, so the engine and timing model
+   run unchanged on a PyTorch capture.
+
+Mapping notes.  Products become ``dot`` with their contracting (and batch)
+dimensions, which ``timing._dot_dims`` and ``SimModule.op_flops`` read.
+Convolutions become ``convolution`` with the filter operand re-declared in
+HWIO order (the FLOP count multiplies every filter dim but the last).  The
+Winograd op becomes an elementwise input transform, a ``dot`` over the 16
+transform positions and an elementwise output transform.  Views become
+``bitcast`` (free, as in eager PyTorch); materialized copies become
+``copy``.  An aten op with no mapping raises ``NotImplementedError``.
+
+No fusion: eager PyTorch launches one kernel per op, so the module has one
+op per launch, and its HBM bytes are larger than those of XLA's fused
+capture of the same step (every intermediate is written and read back).
+"""
+from __future__ import annotations
+
+import operator
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Sequence
+
+import torch
+
+from repro_torch.core.hlo_ir import SimModule, parse_hlo_module
+
+_HLO_DTYPES = {
+    torch.float32: "f32", torch.float64: "f64", torch.float16: "f16",
+    torch.bfloat16: "bf16", torch.int64: "s64", torch.int32: "s32",
+    torch.int16: "s16", torch.int8: "s8", torch.uint8: "u8",
+    torch.bool: "pred", torch.complex64: "c64", torch.complex128: "c128",
+}
+
+_aten = torch.ops.aten
+
+#: aten op -> HLO opcode, for ops emitted as one instruction over their
+#: tensor operands
+_SIMPLE: Dict[Any, str] = {}
+
+
+def _map(opcode: str, *ops) -> None:
+    for op in ops:
+        _SIMPLE[op] = opcode
+
+
+_map("bitcast", _aten.view.default, _aten._unsafe_view.default,
+     _aten.permute.default, _aten.t.default, _aten.transpose.int,
+     _aten.expand.default, _aten.unsqueeze.default, _aten.squeeze.dim,
+     _aten.alias.default, _aten.select.int, _aten.slice.Tensor,
+     _aten.unfold.default, _aten.detach.default, _aten.view_as_real.default,
+     _aten._conj.default)
+_map("copy", _aten.clone.default, _aten.copy_.default,
+     _aten.lift_fresh_copy.default)
+_map("add", _aten.add.Tensor)
+_map("subtract", _aten.sub.Tensor)
+_map("multiply", _aten.mul.Tensor, _aten.mul_.Scalar)
+_map("divide", _aten.div.Scalar)
+_map("negate", _aten.neg.default)
+_map("maximum", _aten.relu.default)
+_map("exponential", _aten.exp.default)
+_map("compare", _aten.eq.Tensor)
+_map("select", _aten.where.self, _aten.threshold_backward.default)
+_map("reduce", _aten.sum.dim_IntList, _aten.mean.default, _aten.argmax.default,
+     _aten.logsumexp.default)
+_map("reduce-window", _aten.max_pool2d_with_indices.default)
+_map("select-and-scatter", _aten.max_pool2d_with_indices_backward.default)
+_map("gather", _aten.index.Tensor)
+_map("scatter", _aten.index_put.default, _aten.unfold_backward.default)
+_map("pad", _aten.constant_pad_nd.default, _aten.slice_backward.default)
+_map("reverse", _aten.flip.default)
+_map("iota", _aten.arange.default)
+_map("broadcast", _aten.zeros.default, _aten.zeros_like.default,
+     _aten.ones_like.default, _aten.new_zeros.default,
+     _aten.scalar_tensor.default)
+_map("fft", _aten._fft_r2c.default, _aten._fft_c2r.default,
+     _aten._fft_c2c.default)
+
+
+def hlo_type(val: Any) -> str:
+    """HLO type string of a tensor, or a tuple type of a tensor sequence."""
+    if isinstance(val, (tuple, list)):
+        return "(" + ", ".join(hlo_type(v) for v in val if v is not None) + ")"
+    if val.dtype not in _HLO_DTYPES:
+        raise NotImplementedError(f"no HLO type for {val.dtype}")
+    dims = ",".join(str(int(d)) for d in val.shape)
+    return f"{_HLO_DTYPES[val.dtype]}[{dims}]"
+
+
+def _shape_type(dtype: torch.dtype, shape: Sequence[int]) -> str:
+    return f"{_HLO_DTYPES[dtype]}[{','.join(str(int(d)) for d in shape)}]"
+
+
+class _Emitter:
+    """Walks an aten FX graph and writes one HLO instruction per node."""
+
+    def __init__(self, gm: torch.fx.GraphModule):
+        self.gm = gm
+        self.lines: List[str] = []
+        self.params: List[str] = []
+        self.names: Dict[torch.fx.Node, str] = {}
+        #: multi-output nodes emitted as separate instructions: index -> name
+        self.parts: Dict[torch.fx.Node, Dict[int, str]] = {}
+
+    # -- helpers ----------------------------------------------------------
+    def inst(self, name: str, type_str: str, opcode: str,
+             operands: Sequence[str], attrs: str = "") -> str:
+        ops = ", ".join(f"%{o}" for o in operands)
+        tail = f", {attrs}" if attrs else ""
+        self.lines.append(f"  %{name} = {type_str} {opcode}({ops}){tail}")
+        return name
+
+    def tensor_operands(self, node: torch.fx.Node) -> List[str]:
+        out = []
+
+        def visit(a):
+            if isinstance(a, torch.fx.Node) and a in self.names:
+                out.append(self.names[a])
+            elif isinstance(a, (list, tuple)):
+                for x in a:
+                    visit(x)
+        for a in list(node.args) + list(node.kwargs.values()):
+            visit(a)
+        return out
+
+    @staticmethod
+    def val(node: torch.fx.Node) -> Any:
+        return node.meta.get("val")
+
+    # -- node kinds -------------------------------------------------------
+    def emit(self, node: torch.fx.Node) -> None:
+        if node.op == "placeholder":
+            v = self.val(node)
+            if not isinstance(v, torch.Tensor):
+                return
+            self.lines.append(f"  %{node.name} = {hlo_type(v)} "
+                              f"parameter({len(self.params)})")
+            self.params.append(f"{node.name}: {hlo_type(v)}")
+            self.names[node] = node.name
+            return
+        if node.op == "get_attr":
+            v = getattr(self.gm, node.target)
+            if isinstance(v, torch.Tensor):
+                self.names[node] = self.inst(node.name, hlo_type(v),
+                                             "constant", [])
+            return
+        if node.op == "output":
+            return
+        if node.op != "call_function":
+            raise NotImplementedError(f"cannot capture FX node kind {node.op!r}")
+        target = node.target
+        if target is operator.getitem:
+            src, idx = node.args
+            if src in self.parts:
+                if idx in self.parts[src]:
+                    self.names[node] = self.parts[src][idx]
+                return
+            self.names[node] = self.inst(node.name, hlo_type(self.val(node)),
+                                         "get-tuple-element",
+                                         [self.names[src]], f"index={idx}")
+            return
+        handler = _SPECIAL.get(target)
+        if handler is not None:
+            handler(self, node)
+            return
+        opcode = _SIMPLE.get(target)
+        if opcode is None:
+            raise NotImplementedError(
+                f"capture has no HLO mapping for op {target}")
+        self.names[node] = self.inst(node.name, hlo_type(self.val(node)),
+                                     opcode, self.tensor_operands(node))
+
+    def finish(self, out_node: torch.fx.Node) -> str:
+        leaves = []
+
+        def visit(a):
+            if isinstance(a, torch.fx.Node):
+                if a in self.names:
+                    leaves.append(a)
+            elif isinstance(a, (list, tuple)):
+                for x in a:
+                    visit(x)
+            elif isinstance(a, dict):
+                for x in a.values():
+                    visit(x)
+        visit(out_node.args)
+        types = ", ".join(hlo_type(self.val(n)) if n.op != "get_attr"
+                          else hlo_type(getattr(self.gm, n.target))
+                          for n in leaves)
+        root = ", ".join(f"%{self.names[n]}" for n in leaves)
+        body = "\n".join(self.lines)
+        head = f"ENTRY %main ({', '.join(self.params)}) -> ({types}) {{"
+        return f"{head}\n{body}\n  ROOT %tuple.out = ({types}) tuple({root})\n}}\n"
+
+
+# -- special handlers ---------------------------------------------------
+
+def _dot(em: _Emitter, node: torch.fx.Node) -> None:
+    a, b = node.args[0], node.args[1]
+    em.names[node] = em.inst(
+        node.name, hlo_type(em.val(node)), "dot",
+        [em.names[a], em.names[b]],
+        "lhs_contracting_dims={1}, rhs_contracting_dims={0}")
+
+
+def _addmm(em: _Emitter, node: torch.fx.Node) -> None:
+    bias, a, b = node.args[:3]
+    em.names[node] = em.inst(
+        node.name, hlo_type(em.val(node)), "dot",
+        [em.names[a], em.names[b], em.names[bias]],
+        "lhs_contracting_dims={1}, rhs_contracting_dims={0}")
+
+
+def _bmm(em: _Emitter, node: torch.fx.Node) -> None:
+    a, b = node.args[:2]
+    em.names[node] = em.inst(
+        node.name, hlo_type(em.val(node)), "dot",
+        [em.names[a], em.names[b]],
+        "lhs_batch_dims={0}, lhs_contracting_dims={2}, "
+        "rhs_batch_dims={0}, rhs_contracting_dims={1}")
+
+
+def _conv_attrs(window: Sequence[int], groups: int) -> str:
+    attrs = f"window={{size={'x'.join(str(int(k)) for k in window)}}}"
+    if groups != 1:
+        attrs += f", feature_group_count={groups}"
+    return attrs
+
+
+def _convolution(em: _Emitter, node: torch.fx.Node) -> None:
+    x, w, bias = node.args[:3]
+    transposed, groups = node.args[6], node.args[8]
+    if transposed:
+        raise NotImplementedError("capture has no mapping for transposed "
+                                  "convolution")
+    wv = em.val(w)
+    co, ci, *k = wv.shape
+    w_hwio = em.inst(f"{node.name}.w", _shape_type(wv.dtype, (*k, ci, co)),
+                     "bitcast", [em.names[w]])
+    operands = [em.names[x], w_hwio] + ([em.names[bias]] if bias is not None else [])
+    em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "convolution",
+                             operands, _conv_attrs(k, groups))
+
+
+def _convolution_backward(em: _Emitter, node: torch.fx.Node) -> None:
+    """Two convolutions (input and filter gradients) and a bias reduce, as
+    XLA lowers the same gradient."""
+    grad, x, w = node.args[:3]
+    transposed, groups, mask = node.args[7], node.args[9], node.args[10]
+    if transposed:
+        raise NotImplementedError("capture has no mapping for transposed "
+                                  "convolution")
+    gv, xv, wv = em.val(grad), em.val(x), em.val(w)
+    co, ci, *k = wv.shape
+    parts: Dict[int, str] = {}
+    if mask[0]:
+        w_in = em.inst(f"{node.name}.wt", _shape_type(wv.dtype, (*k, co, ci)),
+                       "bitcast", [em.names[w]])
+        parts[0] = em.inst(f"{node.name}.dx", _shape_type(xv.dtype, xv.shape),
+                           "convolution", [em.names[grad], w_in],
+                           _conv_attrs(k, groups))
+    if mask[1]:
+        # filter gradient: the batch and output positions are contracted,
+        # so the incoming gradient plays the filter, laid out (N, OH, OW, Co)
+        n, _, *o = gv.shape
+        g_rhs = em.inst(f"{node.name}.gt", _shape_type(gv.dtype, (n, *o, co)),
+                        "bitcast", [em.names[grad]])
+        parts[1] = em.inst(f"{node.name}.dw",
+                           _shape_type(wv.dtype, (*k, ci, co)),
+                           "convolution", [em.names[x], g_rhs],
+                           _conv_attrs(o, groups))
+    if mask[2]:
+        parts[2] = em.inst(f"{node.name}.db", _shape_type(gv.dtype, (co,)),
+                           "reduce", [em.names[grad]])
+    em.parts[node] = parts
+
+
+def _winograd(em: _Emitter, node: torch.fx.Node) -> None:
+    """Input transform, the 16-position contraction, output transform."""
+    tiles, u = node.args[:2]
+    tv, uv = em.val(tiles), em.val(u)
+    b, th, tw, _, _, cin = tv.shape
+    cout = uv.shape[-1]
+    n = b * th * tw
+    v = em.inst(f"{node.name}.v", _shape_type(torch.float32, (16, n, cin)),
+                "multiply", [em.names[tiles]])
+    u16 = em.inst(f"{node.name}.u", _shape_type(torch.float32, (16, cin, cout)),
+                  "bitcast", [em.names[u]])
+    m = em.inst(f"{node.name}.m", _shape_type(torch.float32, (16, n, cout)),
+                "dot", [v, u16],
+                "lhs_batch_dims={0}, lhs_contracting_dims={2}, "
+                "rhs_batch_dims={0}, rhs_contracting_dims={1}")
+    em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "multiply", [m])
+
+
+def _to_copy(em: _Emitter, node: torch.fx.Node) -> None:
+    src = em.val(node.args[0])
+    opcode = "convert" if src.dtype != em.val(node).dtype else "copy"
+    em.names[node] = em.inst(node.name, hlo_type(em.val(node)), opcode,
+                             em.tensor_operands(node))
+
+
+_SPECIAL: Dict[Any, Callable[[_Emitter, torch.fx.Node], None]] = {
+    _aten.mm.default: _dot,
+    _aten.addmm.default: _addmm,
+    _aten.bmm.default: _bmm,
+    _aten.convolution.default: _convolution,
+    _aten.convolution_backward.default: _convolution_backward,
+    _aten._to_copy.default: _to_copy,
+}
+
+
+def _register_kernel_ops() -> None:
+    """The hand-kernel ops are registered when their modules import."""
+    import repro_torch.kernels.tiled_matmul.ops  # noqa: F401
+    import repro_torch.kernels.winograd.ops  # noqa: F401
+    _SPECIAL[torch.ops.repro_torch.tiled_matmul.default] = _dot
+    _SPECIAL[torch.ops.repro_torch.winograd_tiles.default] = _winograd
+
+
+def graph_to_hlo(gm: torch.fx.GraphModule) -> str:
+    """HLO text of a traced aten graph (see the module docstring)."""
+    _register_kernel_ops()
+    em = _Emitter(gm)
+    out_node = None
+    for node in gm.graph.nodes:
+        if node.op == "output":
+            out_node = node
+        em.emit(node)
+    if out_node is None:
+        raise ValueError("traced graph has no output node")
+    return em.finish(out_node)
+
+
+@dataclass
+class Captured:
+    """One captured workload: the aten graph, its HLO text and parsed IR."""
+    name: str
+    graph: torch.fx.GraphModule
+    hlo_text: str
+    module: SimModule
+    capture_seconds: float
+
+
+def capture(fn: Callable, *example_args, name: str = "workload") -> Captured:
+    """Trace ``fn`` on fake copies of ``example_args`` and parse it.
+
+    The example arguments are only read for shapes, dtypes and devices;
+    nothing runs on them.
+    """
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    t0 = time.time()
+    gm = make_fx(fn, tracing_mode="fake")(*example_args)
+    text = graph_to_hlo(gm)
+    module = parse_hlo_module(text)
+    return Captured(name=name, graph=gm, hlo_text=text, module=module,
+                    capture_seconds=time.time() - t0)

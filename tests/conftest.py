@@ -5,6 +5,12 @@ import jax.numpy as jnp
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels have "
+                   "no CPU mode); skips without one")
+
+
 def pytest_addoption(parser):
     parser.addoption(
         "--update-golden", action="store_true", default=False,
