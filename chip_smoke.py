@@ -5,13 +5,23 @@
 
 Builds the port's hand-written kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, then drives the port's
-main path — ``repro_torch.lenet_repro.run``: train LeNet (full width, batch
-128, 60 SGD steps), capture and simulate one step on the ``h100`` spec, and
-the section V conv-algorithm loop — with every kernel's launch count set to
-0 just before and read just after.  Then it times each kernel, its plain
-version and the one PyTorch library call that computes the same function,
-beside the card's bound for the same work, and the steady-state training
-step with its device time by kernel.
+two paths, each with every kernel's launch count set to 0 just before and
+read just after:
+
+* LeNet — ``repro_torch.lenet_repro.run``: train LeNet (full width, batch
+  128, 60 SGD steps), capture and simulate one step on the ``h100`` spec,
+  and the section V conv-algorithm loop;
+* serving — ``repro_torch.launch.serve.run``: llama3-8b at its full config
+  (32 layers, bf16, random weights from seed 0) serves batch 4 x 2048-token
+  prompts for 16 new tokens, prefill attention in the flash kernel; then the
+  kernel is held to its plain version on each layer's served q, k, v, the
+  prefill against the plain decode attention at full width, and the
+  prefill and decode steps are captured and simulated on ``h100``.
+
+Then it times each kernel, its plain version and the one PyTorch library
+call that computes the same function, beside the card's bound for the same
+work, and the steady-state LeNet training step with its device time by
+kernel.
 
 Exits non-zero on any failure, without a result line; in particular when no
 CUDA device is available or when ``src/repro_torch`` is not beside it.  The
@@ -32,7 +42,11 @@ SRC = ROOT / "src"
 
 # data-sheet peaks of one H100 SXM (dense, at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+
+# the serving path: llama3-8b FULL, batch 4, 2048-token prompts, 16 new tokens
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 16
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
@@ -93,6 +107,22 @@ def _close(out, ref, tol):
         return 0.0, True
     err = float((out - ref).abs().max())
     return err, err <= tol * max(1.0, float(ref.abs().max()))
+
+
+def _close_rows(out, ref, tol):
+    """Attention outputs: (max abs error, the worst row's error over that
+    row's largest |ref|, whether every row is within ``tol`` of its own).
+
+    A row's output is a weighted mean of v, so its scale falls with the
+    number of keys it sees: a bound on the whole tensor's magnitude would
+    be set by the first rows and pass a late row that misses a tile.
+    """
+    out, ref = out.float(), ref.float()
+    if not out.numel():
+        return 0.0, 0.0, True
+    err, scale = (out - ref).abs().amax(-1), ref.abs().amax(-1)
+    worst = float((err / scale.clamp_min(1e-30)).max())
+    return float(err.max()), worst, bool((err <= tol * scale).all())
 
 
 # LeNet-full (batch 128, gemm convs) forward products: (M, K, N)
@@ -185,12 +215,56 @@ def winograd_phase():
     return case_err
 
 
+def flash_phase():
+    """The flash kernel against attention_ref: the serving slice's shape
+    (one llama3-8b layer's prefill attention, handed in as the model's
+    (b, s, heads, d) views), a ragged length, and the masks and head dims
+    llama3-8b does not use, at small sizes.  Each row is held to its own
+    scale (``_close_rows``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_fwd
+    phase("5. flash_attention against attention_ref")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16 = torch.bfloat16
+    cases = [  # label, (b, h, kv, s, t, d), dtype, causal, window, softcap
+        ("slice b4 h32 kv8 s=t=2048 d128 bf16 causal", (4, 32, 8, 2048, 2048, 128),
+         bf16, True, 0, 0.0),
+        ("ragged s=t=2000 d128 bf16 causal", (1, 32, 8, 2000, 2000, 128),
+         bf16, True, 0, 0.0),
+        ("ragged s=t=2000 d128 f32 causal", (1, 8, 2, 2000, 2000, 128),
+         torch.float32, True, 0, 0.0),
+        ("window 64 d64 f32", (2, 8, 2, 500, 500, 64), torch.float32, True, 64, 0.0),
+        ("softcap 30 d32 f32", (2, 4, 2, 300, 300, 32), torch.float32, True, 0, 30.0),
+        ("non-causal s=200 t=333 d64 f32", (2, 4, 4, 200, 333, 64),
+         torch.float32, False, 0, 0.0),
+        ("non-causal window 64 softcap 30 d32 bf16", (1, 8, 2, 257, 257, 32),
+         bf16, False, 64, 30.0),
+    ]
+    slice_err = None
+    for label, (b, h, kv, sq, t, d), dtype, causal, window, softcap in cases:
+        q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(b, t, kv, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(b, t, kv, d, generator=gen, device="cuda").to(dtype)
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out = flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dtype == bf16 else 2e-3
+        err, worst, ok = _close_rows(out, attention_ref(q, k, v, **kw), tol)
+        print(f"  {label}: max_abs_err {err:.3e}, worst row {worst:.3e} of its "
+              f"max |ref| (tol {tol})")
+        check(ok, f"flash_attention disagrees with attention_ref on {label}")
+        if label.startswith("slice"):
+            slice_err = err
+    return slice_err
+
+
 def main_path_phase():
     import torch
     from repro_torch import lenet_repro
     from repro_torch.kernels.tiled_matmul import tiled_matmul
     from repro_torch.kernels.winograd import winograd_tiles
-    phase("5-6. main path: train LeNet, capture + simulate, SS V loop")
+    phase("6. main path: train LeNet, capture + simulate, SS V loop")
     tiled_matmul.launches = 0
     winograd_tiles.launches = 0
     res = lenet_repro.run(device="cuda", hw="h100")
@@ -245,7 +319,7 @@ def timing_phase(launches, products_per_step, mm_err, wino_err):
     from repro_torch.kernels.tiled_matmul import matmul_ref, tiled_matmul
     from repro_torch.kernels.winograd import winograd_tiles, winograd_tiles_ref
     from repro_torch.lenet_repro import CASE_W, CASE_X
-    phase("7. timing (CUDA events, TF32 off)")
+    phase("7. timing of the LeNet kernels (CUDA events, TF32 off)")
     gen = torch.Generator(device="cuda").manual_seed(2)
     prods = lenet_step_products(gen, "cuda")
     rows = []
@@ -334,11 +408,20 @@ def step_phase():
 
     step_ms = _time_ms(one_step, reps=10, warmup=3)
     print(f"  step {step_ms:.3f} ms (CUDA events, mean of 10)")
+    _profile("step", one_step, 5)
+    return step_ms
+
+
+def _profile(unit, fn, n, top=10):
+    """Device time by kernel over ``n`` calls of ``fn`` under
+    ``torch.profiler``, and the device's busy share of the host window."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
-            one_step()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     # only the device's own events (kernels, copies): a CPU op's row also
@@ -349,14 +432,292 @@ def step_phase():
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
         print("  torch.profiler recorded no device time")
-        return step_ms
+        return
     busy_us = sum(r[0] for r in rows)
-    print(f"  profiler: device busy {busy_us / 5 / 1e3:.3f} ms a step, "
-          f"{100 * busy_us / window_us:.1f}% of the {window_us / 5 / 1e3:.3f} ms "
-          f"host window, {len(rows)} distinct device kernels")
-    for t, key, count in rows[:10]:
-        print(f"    {t / 5 / 1e3:8.3f} ms/step  {count // 5:4d} calls/step  {key[:90]}")
-    return step_ms
+    print(f"  profiler: device busy {busy_us / n / 1e3:.3f} ms a {unit}, "
+          f"{100 * busy_us / window_us:.1f}% of the {window_us / n / 1e3:.3f} ms "
+          f"host window, {sum(r[2] for r in rows) / n:.0f} device kernels a "
+          f"{unit} ({len(rows)} distinct)")
+    for t, key, count in rows[:top]:
+        print(f"    {t / n / 1e3:8.3f} ms/{unit}  {count // n:4d} calls/{unit}  {key[:90]}")
+
+
+def _upcast(tree):
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _decode_vs_prefill(model, params, prompts):
+    """(relative error of decoding the last prompt token after prefilling
+    the rest, against the whole prompt's prefill; that prefill's logits)."""
+    from repro_torch.runtime.server import Server
+    from repro_torch.runtime.steps import decode_step, prefill_step
+    full, _ = prefill_step(model, params, {"tokens": prompts})
+    _, cache = prefill_step(model, params, {"tokens": prompts[:, :-1]})
+    cache = Server._grow_cache(cache, 1)
+    last, _ = decode_step(model, params, cache, {"token": prompts[:, -1:]})
+    return _rel(last, full), full
+
+
+def _flash_probe(plain):
+    """A dispatch mode over the model's ``repro_torch::flash_attention``
+    calls, on the q, k, v the served model really makes.  ``plain=False``:
+    run the kernel, hold each call's output to ``attention_ref`` row by row
+    (``.rows``), and note how hard the layer's attention is (``.hardness``:
+    the spread of q.k/sqrt(d) and the mean largest probability, over the
+    last 128 queries of head 0).  ``plain=True``: answer every call with
+    ``attention_ref``, so the model runs without the kernel."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    class Probe(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.rows, self.hardness = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is not torch.ops.repro_torch.flash_attention.default:
+                return func(*args, **kwargs)
+            q, k, v = args[:3]
+            mask = dict(zip(("causal", "window", "softcap"), args[3:]), **kwargs)
+            ref = attention_ref(q, k, v, **mask)
+            if plain:
+                return ref
+            out = func(*args, **kwargs)
+            self.rows.append(_close_rows(out, ref, BF16_TOL))
+            s, d = q.shape[2], q.shape[3]
+            sc = (q[:, 0, -128:].float() @ k[:, 0].float().transpose(-1, -2)) / d ** 0.5
+            sc = sc.masked_fill(torch.arange(s, device=q.device)[None, :]
+                                > torch.arange(s - 128, s, device=q.device)[:, None],
+                                float("-inf"))
+            p_max = torch.softmax(sc, -1).amax(-1).mean()
+            self.hardness.append((float(sc[sc.isfinite()].std()), float(p_max)))
+            return out
+
+    return Probe()
+
+
+def serve_phase():
+    """The serving path, as ``python -m repro_torch.launch.serve --arch
+    llama3-8b --batch 4 --prompt-len 2048 --max-new 16`` runs it; then a
+    warm repeat, a profile of one prefill and four decode steps, the bf16
+    kernel held to attention_ref on every layer's served q, k, v, and the
+    decode-against-prefill check."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.kernels.winograd import winograd_tiles
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime.server import Server, ServeStats
+    from repro_torch.runtime.steps import decode_step, prefill_step
+    phase(f"9. main path: serve {SERVE_ARCH} FULL, batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, {SERVE_NEW} new tokens")
+    torch.cuda.reset_peak_memory_stats()
+    for kern in (tiled_matmul, winograd_tiles, flash_attention_fwd):
+        kern.launches = 0
+    res = serve.run(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    max_new=SERVE_NEW, device="cuda")
+    launches = {"tiled_matmul": tiled_matmul.launches,
+                "winograd_tiles": winograd_tiles.launches,
+                "flash_attention": flash_attention_fwd.launches}
+    torch.cuda.synchronize()
+    server, model, params = res["server"], res["model"], res["params"]
+    cfg = model.cfg
+    stats = server.stats
+    print(f"  main-path launches: {json.dumps(launches)}")
+    print(f"  main path (first call): prefill {stats.prefill_s * 1e3:.1f} ms, "
+          f"decode {stats.decode_tok_per_s:.1f} tok/s ({stats.tokens_out} tokens), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(weights drawn on the card included)")
+    check(launches["flash_attention"] >= cfg.num_layers,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"expected >= {cfg.num_layers} (one per layer of the prefill)")
+    tokens = res["tokens"]
+    check(tokens.shape[0] == SERVE_BATCH and 1 <= tokens.shape[1] <= SERVE_NEW,
+          f"generated tokens have shape {tokens.shape}")
+    check(0 <= tokens.min() and tokens.max() < cfg.vocab_size,
+          f"generated tokens outside [0, {cfg.vocab_size})")
+
+    # warm repeat of the same requests: serving time and peak memory alone
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server.stats = ServeStats()
+    server.generate({"tokens": res["prompts"]}, max_new_tokens=SERVE_NEW)
+    warm = {"prefill_ms": server.stats.prefill_s * 1e3,
+            "decode_tok_per_s": server.stats.decode_tok_per_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "weights_gb": sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9}
+    print(f"  warm repeat: prefill {warm['prefill_ms']:.1f} ms, decode "
+          f"{warm['decode_tok_per_s']:.1f} tok/s, peak memory "
+          f"{warm['peak_gb']:.2f} GB ({warm['weights_gb']:.2f} GB of weights)")
+
+    # where a warm prefill and a warm decode step spend the device's time
+    prompts = res["prompts"]
+    _profile("prefill", lambda: prefill_step(model, params, {"tokens": prompts}), 1,
+             top=6)
+    _, cache = prefill_step(model, params, {"tokens": prompts})
+    state = {"cache": Server._grow_cache(cache, 4)}
+    del cache
+
+    def one_decode():
+        state["cache"] = decode_step(model, params, state["cache"],
+                                     {"token": prompts[:, -1:]})[1]
+
+    _profile("decode step", one_decode, 4, top=6)
+    del state
+
+    # the bf16 kernel on the served model's own q, k, v, layer by layer
+    probe = _flash_probe(plain=False)
+    with probe:
+        prefill_step(model, params, {"tokens": prompts})
+    check(len(probe.rows) == cfg.num_layers,
+          f"probe saw {len(probe.rows)} flash_attention calls, expected "
+          f"{cfg.num_layers}")
+    worst = max(r[1] for r in probe.rows)
+    stds = sorted(h[0] for h in probe.hardness)
+    pmax = sorted(h[1] for h in probe.hardness)
+    print(f"  flash_attention on the served prefill's q, k, v (bf16, "
+          f"{cfg.num_layers} layers): max_abs_err {max(r[0] for r in probe.rows):.3e}, "
+          f"worst row {worst:.3e} of its max |ref| (tol {BF16_TOL})")
+    print(f"  attention hardness over the layers (last 128 queries of head 0): "
+          f"std of q.k/sqrt(d) {stds[0]:.1f} / {stds[len(stds) // 2]:.1f} / "
+          f"{stds[-1]:.1f}, mean largest probability {pmax[0]:.3f} / "
+          f"{pmax[len(pmax) // 2]:.3f} / {pmax[-1]:.3f} (min / median / max)")
+    check(all(r[2] for r in probe.rows),
+          f"flash_attention disagrees with attention_ref on the served "
+          f"prefill's activations: worst row {worst} > {BF16_TOL}")
+
+    # the kernel's prefill against the plain decode attention, at full width:
+    # in bf16 with the kernel, in bf16 without it (the witness of how far
+    # bf16 rounding alone carries through this model), and in fp32
+    rel_bf16, logits = _decode_vs_prefill(model, params, prompts)
+    check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
+    with _flash_probe(plain=True):
+        rel_plain, logits_plain = _decode_vs_prefill(model, params, prompts)
+    rel_paths = _rel(logits, logits_plain)
+    del logits, logits_plain
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _upcast(params)
+    rel_f32, _ = _decode_vs_prefill(build_model(cfg32), params32, prompts)
+    del params32
+    torch.cuda.empty_cache()
+    print(f"  decode of token {SERVE_PROMPT - 1} after a prefill of "
+          f"{SERVE_PROMPT - 1} vs the prefill of {SERVE_PROMPT}, last logits, "
+          f"relative error: {rel_f32:.3e} in fp32 (the same weights; tol "
+          f"{BF16_TOL}); in bf16 (not checked: see PERF.md) {rel_bf16:.3e} "
+          f"with the kernel, {rel_plain:.3e} with attention_ref in its place; "
+          f"the two bf16 prefills' logits differ by {rel_paths:.3e}")
+    check(rel_f32 <= BF16_TOL,
+          f"fp32 decode vs prefill relative error {rel_f32} > {BF16_TOL}")
+    return res, launches
+
+
+def _analytic_dot_flops(cfg, b, n, t):
+    """The products of one prefill (n = t) or decode (n = 1) step, as the
+    capture emits them (full n x t attention products)."""
+    from repro_torch.models.layers import pad_vocab
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    layer = (2 * b * n * d * (h + 2 * kv) * hd + 2 * b * n * h * hd * d
+             + 3 * 2 * b * n * d * cfg.d_ff + 2 * 2 * b * h * n * t * hd)
+    return cfg.num_layers * layer + 2 * b * d * pad_vocab(cfg.vocab_size)
+
+
+def serve_sim_phase(res):
+    """Capture the full-width prefill and decode steps and simulate them on
+    the ``h100`` spec (``examples/serve_llm.py``'s view of serving)."""
+    import torch
+    from repro_torch.core import H100, Simulator
+    from repro_torch.lenet_repro import summary_lines
+    from repro_torch.runtime.steps import decode_step, prefill_step
+    phase("10. capture + simulate the full-width prefill and decode steps (h100)")
+    model, params, prompts = res["model"], res["params"], res["prompts"]
+    cfg = model.cfg
+    b, s = prompts.shape
+    total = s + SERVE_NEW
+    kv_shape = (cfg.num_layers, b, total, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cache = {"k": torch.empty(kv_shape, dtype=torch.bfloat16, device="cuda"),
+             "v": torch.empty(kv_shape, dtype=torch.bfloat16, device="cuda"),
+             "pos": s}
+    sim = Simulator(hw=H100)
+    caps = {"prefill": sim.capture(lambda p, bt: prefill_step(model, p, bt),
+                                   params, {"tokens": prompts}, name="prefill"),
+            "decode": sim.capture(lambda p, c, bt: decode_step(model, p, c, bt),
+                                  params, cache, {"token": prompts[:, :1]},
+                                  name="decode")}
+    del cache
+    out = {}
+    for kind, cap in caps.items():
+        rep = sim.performance(cap)
+        m = cap.module
+        dot_flops = sum(sc * m.op_flops(c, o)["mxu"] for o, c, sc in m.walk_entry())
+        n, t = (s, s) if kind == "prefill" else (1, total)
+        want = _analytic_dot_flops(cfg, b, n, t)
+        print(f"  captured {kind}: {len(m.comp(m.entry).ops)} ops in "
+              f"{cap.capture_seconds:.2f}s, dot FLOPs {dot_flops:.4e} "
+              f"(analytic {want:.4e})")
+        for line in summary_lines(f"{SERVE_ARCH} {kind} b{b} s{s}", rep):
+            print(line)
+        check(dot_flops == want, f"{kind} capture counts {dot_flops} dot FLOPs, "
+                                 f"expected {want}")
+        secs = rep.summary()["total_seconds"]
+        check(secs > 0 and math.isfinite(secs), f"bad simulated {kind} time {secs}")
+        out[kind] = secs
+    print(f"  modeled decode step: {out['decode'] * 1e6:.1f} us "
+          f"({b / out['decode']:.0f} tok/s on one chip); modeled prefill "
+          f"{out['prefill'] * 1e3:.2f} ms")
+    return out
+
+
+def flash_timing_phase(launches, flash_err):
+    """One llama3-8b layer's prefill attention at the serving shape: the
+    kernel, its plain version and SDPA (the library yardstick, never on the
+    path), beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_fwd
+    phase("11. timing of flash_attention at the serving shape (CUDA events)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, h, kv, s, d = SERVE_BATCH, 32, 8, SERVE_PROMPT, 128
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2) for n in (h, kv, kv))
+    flops = 0.5 * 4.0 * b * h * s * s * d         # causal: half of QK^T and PV
+    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+    t_k = _time_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+    t_p = _time_ms(lambda: attention_ref(q, k, v, causal=True), reps=5, warmup=1)
+    t_l = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    bound, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"  flash_attention q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal: "
+          f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s), plain "
+          f"{t_p:.4f} ms, SDPA {t_l:.4f} ms, bound {bound * 1e3:.2f} us ({by})")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+            "launches": launches["flash_attention"], "max_abs_err": flash_err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+            "library_ms": t_l,
+            "unit": f"one llama3-8b layer's prefill attention, b{b} h{h} kv{kv} "
+                    f"s=t={s} d{d} bf16 causal"}
 
 
 def main() -> int:
@@ -371,9 +732,14 @@ def main() -> int:
         build_phase()
         mm_err = matmul_phase()
         wino_err = winograd_phase()
+        flash_err = flash_phase()
         launches, pps = main_path_phase()
         kernels = timing_phase(launches, pps, mm_err, wino_err)
         step_phase()
+        res, serve_launches = serve_phase()
+        serve_sim_phase(res)
+        del res
+        kernels.append(flash_timing_phase(serve_launches, flash_err))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -6,8 +6,9 @@ counterpart of ``repro.core.capture``.  Three steps:
 1. ``make_fx(fn, tracing_mode="fake")`` traces ``fn`` on fake copies of the
    example arguments: forward, ``torch.autograd.grad`` and the optimizer
    update all land in one aten graph, and each hand-kernel op
-   (``repro_torch::tiled_matmul``, ``repro_torch::winograd_tiles``) is one
-   node in it, forward and backward.
+   (``repro_torch::tiled_matmul``, ``repro_torch::winograd_tiles``,
+   ``repro_torch::flash_attention``) is one node in it, forward and
+   backward.
 2. Every node is emitted as HLO text in the subset that
    :func:`~repro_torch.core.hlo_ir.parse_hlo_module` reads: one
    instruction per aten or custom-op node, ``parameter``s for the inputs,
@@ -20,7 +21,9 @@ dimensions, which ``timing._dot_dims`` and ``SimModule.op_flops`` read.
 Convolutions become ``convolution`` with the filter operand re-declared in
 HWIO order (the FLOP count multiplies every filter dim but the last).  The
 Winograd op becomes an elementwise input transform, a ``dot`` over the 16
-transform positions and an elementwise output transform.  Views become
+transform positions and an elementwise output transform; the flash-attention
+op a q.k^T ``dot`` batched over the kv heads, an ``exponential`` and a p.v
+``dot``.  Views become
 ``bitcast`` (free, as in eager PyTorch); materialized copies become
 ``copy``.  An aten op with no mapping raises ``NotImplementedError``.
 
@@ -58,35 +61,47 @@ def _map(opcode: str, *ops) -> None:
         _SIMPLE[op] = opcode
 
 
+# views, and ``split``'s tuple of views, are free; so is an uninitialized
+# allocation (``empty``), which writes nothing
 _map("bitcast", _aten.view.default, _aten._unsafe_view.default,
      _aten.permute.default, _aten.t.default, _aten.transpose.int,
      _aten.expand.default, _aten.unsqueeze.default, _aten.squeeze.dim,
      _aten.alias.default, _aten.select.int, _aten.slice.Tensor,
      _aten.unfold.default, _aten.detach.default, _aten.view_as_real.default,
-     _aten._conj.default)
+     _aten._conj.default, _aten.split.Tensor, _aten.empty.memory_format)
 _map("copy", _aten.clone.default, _aten.copy_.default,
      _aten.lift_fresh_copy.default)
 _map("add", _aten.add.Tensor)
 _map("subtract", _aten.sub.Tensor)
-_map("multiply", _aten.mul.Tensor, _aten.mul_.Scalar)
-_map("divide", _aten.div.Scalar)
+_map("multiply", _aten.mul.Tensor, _aten.mul_.Scalar,
+     _aten.pow.Tensor_Scalar)                       # x ** 2, as XLA lowers it
+_map("divide", _aten.div.Scalar, _aten.div.Tensor, _aten.reciprocal.default)
 _map("negate", _aten.neg.default)
 _map("maximum", _aten.relu.default)
-_map("exponential", _aten.exp.default)
-_map("compare", _aten.eq.Tensor)
+_map("exponential", _aten.exp.default,
+     _aten._softmax.default)                        # its exp dominates
+_map("rsqrt", _aten.rsqrt.default)
+_map("power", _aten.pow.Scalar)
+_map("cosine", _aten.cos.default)
+_map("sine", _aten.sin.default)
+_map("tanh", _aten.tanh.default)
+_map("logistic", _aten.silu.default)                # x * sigmoid(x)
+_map("compare", _aten.eq.Tensor, _aten.ge.Scalar, _aten.lt.Scalar)
+_map("and", _aten.bitwise_and_.Tensor)
 _map("select", _aten.where.self, _aten.threshold_backward.default)
-_map("reduce", _aten.sum.dim_IntList, _aten.mean.default, _aten.argmax.default,
-     _aten.logsumexp.default)
+_map("reduce", _aten.sum.dim_IntList, _aten.mean.default, _aten.mean.dim,
+     _aten.argmax.default, _aten.logsumexp.default)
 _map("reduce-window", _aten.max_pool2d_with_indices.default)
 _map("select-and-scatter", _aten.max_pool2d_with_indices_backward.default)
 _map("gather", _aten.index.Tensor)
 _map("scatter", _aten.index_put.default, _aten.unfold_backward.default)
 _map("pad", _aten.constant_pad_nd.default, _aten.slice_backward.default)
+_map("concatenate", _aten.cat.default)
 _map("reverse", _aten.flip.default)
-_map("iota", _aten.arange.default)
+_map("iota", _aten.arange.default, _aten.arange.start_step)
 _map("broadcast", _aten.zeros.default, _aten.zeros_like.default,
      _aten.ones_like.default, _aten.new_zeros.default,
-     _aten.scalar_tensor.default)
+     _aten.scalar_tensor.default, _aten.full.default, _aten.ones.default)
 _map("fft", _aten._fft_r2c.default, _aten._fft_c2r.default,
      _aten._fft_c2c.default)
 
@@ -307,6 +322,34 @@ def _winograd(em: _Emitter, node: torch.fx.Node) -> None:
     em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "multiply", [m])
 
 
+def _flash_attention(em: _Emitter, node: torch.fx.Node) -> None:
+    """q.k^T batched over (b, kv), the softmax's exp, p.v: the FLOPs of the
+    reference's two grouped ``sdpa`` einsums (the full s x t score matrix:
+    the reference computes the masked half too).
+
+    Under GQA q's h = kv * g heads are viewed as (b, kv, g * s, d), so both
+    products batch over the kv heads that k and v really have."""
+    q, k, v = node.args[:3]
+    qv, kv_ = em.val(q), em.val(k)
+    b, h, s, d = qv.shape
+    kvh, t = kv_.shape[1], kv_.shape[2]
+    gs = h // kvh * s
+    batch = "lhs_batch_dims={0,1}, rhs_batch_dims={0,1}"
+    qg = em.inst(f"{node.name}.q", _shape_type(qv.dtype, (b, kvh, gs, d)),
+                 "bitcast", [em.names[q]])
+    scores = em.inst(f"{node.name}.s", _shape_type(torch.float32, (b, kvh, gs, t)),
+                     "dot", [qg, em.names[k]],
+                     f"{batch}, lhs_contracting_dims={{3}}, "
+                     "rhs_contracting_dims={3}")
+    p = em.inst(f"{node.name}.p", _shape_type(torch.float32, (b, kvh, gs, t)),
+                "exponential", [scores])
+    out = em.inst(f"{node.name}.o", _shape_type(em.val(node).dtype, (b, kvh, gs, d)),
+                  "dot", [p, em.names[v]],
+                  f"{batch}, lhs_contracting_dims={{3}}, "
+                  "rhs_contracting_dims={2}")
+    em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "bitcast", [out])
+
+
 def _to_copy(em: _Emitter, node: torch.fx.Node) -> None:
     src = em.val(node.args[0])
     opcode = "convert" if src.dtype != em.val(node).dtype else "copy"
@@ -326,10 +369,12 @@ _SPECIAL: Dict[Any, Callable[[_Emitter, torch.fx.Node], None]] = {
 
 def _register_kernel_ops() -> None:
     """The hand-kernel ops are registered when their modules import."""
+    import repro_torch.kernels.flash_attention.ops  # noqa: F401
     import repro_torch.kernels.tiled_matmul.ops  # noqa: F401
     import repro_torch.kernels.winograd.ops  # noqa: F401
     _SPECIAL[torch.ops.repro_torch.tiled_matmul.default] = _dot
     _SPECIAL[torch.ops.repro_torch.winograd_tiles.default] = _winograd
+    _SPECIAL[torch.ops.repro_torch.flash_attention.default] = _flash_attention
 
 
 def graph_to_hlo(gm: torch.fx.GraphModule) -> str:

@@ -8,7 +8,8 @@ Each kernel ships the reference package's three layers:
               yardstick the card's kernel is held to
 
 Kernels: tiled_matmul (block-configurable GEMM — the section V GEMM case
-study), winograd (F(2x2,3x3) conv — the paper's headline cuDNN algorithm).
+study), winograd (F(2x2,3x3) conv — the paper's headline cuDNN algorithm),
+flash_attention (online-softmax attention forward — the LMs' prefill).
 """
 from repro_torch.kernels.dispatch import use_kernel
 

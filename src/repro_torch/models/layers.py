@@ -1,17 +1,21 @@
-"""Parameter specs and the layers LeNet uses, in PyTorch.
+"""Parameter specs and the common layers, in PyTorch.
 
-Only what the LeNet slice needs is here: :class:`ParamSpec`, the
-``normal``/``zeros`` initializers drawn from an explicit
-``torch.Generator``, and :func:`softmax_cross_entropy`.  Layouts follow the
-reference package (``repro.models.layers``) so parameters transfer 1:1.
+The port of ``repro.models.layers``: :class:`ParamSpec` trees (nested dicts
+of specs, stacked on a leading layer axis by :func:`stack_specs`), their
+``normal``/``zeros``/``embed`` initializers drawn from an explicit
+``torch.Generator`` on the generator's device, and the layers LeNet and the
+decoder LMs use.  Layouts follow the reference package so parameters
+transfer 1:1.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -27,7 +31,7 @@ def torch_dtype(name: str) -> torch.dtype:
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"          # normal | zeros
+    init: str = "normal"          # normal | zeros | embed
     scale: float = 1.0
     dtype: Optional[str] = None   # None -> model compute dtype
 
@@ -36,34 +40,115 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
 
 
-def spec_param_count(specs: Mapping[str, ParamSpec]) -> int:
-    """Analytic number of parameters of a flat spec dict."""
-    return sum(int(np.prod(s.shape)) for s in specs.values())
+def pad_vocab(v: int, multiple: int = 256) -> int:
+    """Pad vocab to a shardable multiple (standard embedding-table padding)."""
+    return ((v + multiple - 1) // multiple) * multiple
+
+
+def _spec_leaves(specs: Any):
+    if isinstance(specs, ParamSpec):
+        yield specs
+        return
+    for v in specs.values():
+        yield from _spec_leaves(v)
+
+
+def _map_specs(fn, specs: Any) -> Any:
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    return {k: _map_specs(fn, v) for k, v in specs.items()}
+
+
+def spec_param_count(specs: Any) -> int:
+    """Analytic number of parameters of a (nested) spec dict."""
+    return sum(int(np.prod(s.shape)) for s in _spec_leaves(specs))
+
+
+def stack_specs(specs: Any, n: int) -> Any:
+    """Add a leading stacked-layer dimension to every spec."""
+    return _map_specs(lambda s: dataclasses.replace(
+        s, shape=(n,) + s.shape, axes=("layers",) + s.axes), specs)
 
 
 def _init_one(spec: ParamSpec, generator: torch.Generator,
               default_dtype: str) -> torch.Tensor:
     dtype = torch_dtype(spec.dtype or default_dtype)
+    device = generator.device
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype)
-    if spec.init == "normal":
-        # the reference's fan-in rule: leading dim for rank >= 2
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "embed":
+        std = spec.scale
+    elif spec.init == "normal":
+        # the reference's fan-in rule: leading dim for rank >= 2 (for a
+        # stacked spec that is the layer count, as in the reference)
         fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
         std = spec.scale / np.sqrt(max(fan_in, 1))
-        draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32)
-        return (draw * std).to(dtype)
-    raise ValueError(f"unknown init {spec.init!r}")
+    else:
+        raise ValueError(f"unknown init {spec.init!r}")
+    draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device)
+    return draw.mul_(std).to(dtype)
 
 
-def init_params(specs: Mapping[str, ParamSpec], generator: torch.Generator,
-                dtype: str = "float32") -> Dict[str, torch.Tensor]:
-    """Materialize a flat spec dict on the CPU, in the specs' order.
+def init_params(specs: Any, generator: torch.Generator,
+                dtype: str = "float32") -> Any:
+    """Materialize a (nested) spec dict in the specs' order, on the
+    generator's device.
 
-    ``jax.random`` and ``torch.Generator`` draw different numbers from the
-    same seed: to give both packages identical weights, make them with
-    numpy and load them with ``repro_torch.models.lenet.params_from_jax``.
+    Each tensor is drawn in fp32 and cast to its dtype before the next one
+    is drawn, so the fp32 draw of one tensor is the only transient: llama3-8b
+    (8.03 B parameters) is made on the card in bf16 without a 32 GB fp32
+    copy on the host.  ``jax.random`` and ``torch.Generator`` draw different
+    numbers from the same seed: to give both packages identical weights,
+    make them with numpy and load them with the model's ``params_from_jax``.
     """
-    return {name: _init_one(s, generator, dtype) for name, s in specs.items()}
+    return _map_specs(lambda s: _init_one(s, generator, dtype), specs)
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm with fp32 statistics and the reference's ``(1 + gamma)`` scale."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    normed = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    return normed * (1.0 + gamma.float()).to(x.dtype)
+
+
+def rms_norm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), (None,), init="zeros")   # gamma stored as (1+g)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x @ w
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return dense(F.silu(dense(x, w_gate)) * dense(x, w_up), w_down)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integers."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (hd/2,)
+    angles = positions[..., None].float() * freqs                 # (..., seq, hd/2)
+    cos = angles.cos()[..., None, :]                              # (..., seq, 1, hd/2)
+    sin = angles.sin()[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -9,12 +9,16 @@ mode), is marked ``cuda``, and skips without a card.  The file imports no
 Tolerance: fp32 1e-4 and bf16 2e-2 of the output's largest magnitude (the
 kernel sums in another order than the library; over K = 100,352 terms the
 error grows with the output), Winograd 4e-4 against the direct conv (the
-transforms add roundings of their own).
+transforms add roundings of their own), flash attention 2e-3 (fp32) and
+2e-2 (bf16) of the output's largest magnitude, as the reference kernel tests
+hold the Pallas kernel.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
+                                                 flash_attention_fwd)
 from repro_torch.kernels.tiled_matmul import BLOCK_CONFIGS, matmul, matmul_ref, tiled_matmul
 from repro_torch.kernels.winograd import (conv3x3_ref, conv3x3_winograd,
                                           winograd_tiles, winograd_tiles_ref)
@@ -122,3 +126,85 @@ def test_winograd_refuses_what_it_does_not_take(cuda):
         winograd_tiles(tiles, u[:, :, :4])
     with pytest.raises(ValueError):
         winograd_tiles(tiles.transpose(1, 2), u)
+
+
+FLASH_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
+                (1, 4, 4, 384, 64), (2, 8, 2, 200, 128), (1, 4, 2, 77, 64)]
+FLASH_MASKS = [(True, 0, 0.0), (True, 64, 0.0), (False, 0, 0.0), (True, 0, 30.0),
+               (False, 64, 30.0)]
+
+
+def _flash_inputs(b, h, kv, s, d, t=None, dtype=torch.float32, device=None):
+    t = s if t is None else t
+    return [_randn(seed, *shape, device=device).to(dtype) for seed, shape in
+            ((11, (b, h, s, d)), (12, (b, kv, t, d)), (13, (b, kv, t, d)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d", FLASH_SHAPES)
+@pytest.mark.parametrize("causal,window,softcap", FLASH_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, b, h, kv, s, d, causal, window, softcap, dtype):
+    q, k, v = _flash_inputs(b, h, kv, s, d, dtype=dtype, device=cuda)
+    before = flash_attention_fwd.launches
+    out = flash_attention_fwd(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    err, scale = _err(out, attention_ref(q, k, v, causal=causal, window=window,
+                                         softcap=softcap))
+    assert err <= (2e-2 if dtype == torch.bfloat16 else 2e-3) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t", [(200, 200), (256, 200), (128, 200), (1, 300)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_attention_ragged(cuda, s, t, causal, window):
+    """Ragged s != t, masked in the kernel: held to attention_ref (the
+    reference wrapper's unmasked pads are wrong for causal s > t)."""
+    q, k, v = _flash_inputs(1, 4, 2, s, 64, t=t, device=cuda)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    err, scale = _err(out, attention_ref(q, k, v, causal=causal, window=window))
+    assert err <= 2e-3 * scale
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_the_models_layout(cuda):
+    """(b, s, heads, d) activations go in as transposed views, without
+    copies; the output is laid out like q."""
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in
+               _flash_inputs(2, 32, 8, 300, 128, dtype=torch.bfloat16, device=cuda))
+    out = flash_attention_fwd(q, k, v, causal=True)
+    assert out.stride() == q.stride()
+    err, scale = _err(out, attention_ref(q, k, v, causal=True))
+    assert err <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_flash_attention_op_gradient(cuda):
+    """Forward through the kernel, backward recomputed through attention_ref."""
+    q, k, v = (x.requires_grad_() for x in _flash_inputs(1, 4, 2, 128, 64, device=cuda))
+    g = _randn(14, 1, 4, 128, 64, device=cuda)
+    before = flash_attention_fwd.launches
+    (flash_attention(q, k, v, causal=True, window=64) * g).sum().backward()
+    assert flash_attention_fwd.launches == before + 1
+    refs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    (attention_ref(*refs, causal=True, window=64) * g).sum().backward()
+    for mine, ref in zip((q, k, v), refs):
+        err, scale = _err(mine.grad, ref.grad)
+        assert err <= 2e-3 * scale
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q, k, v = _flash_inputs(1, 4, 2, 64, 64, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd(*_flash_inputs(1, 4, 2, 64, 256, device=cuda))
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k[:, :1].expand(1, 3, 64, 64), v[:, :1].expand(1, 3, 64, 64))
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k, v.cpu())
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention_fwd(q.transpose(2, 3), k, v)

@@ -16,9 +16,12 @@ from repro_torch import config as C
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.tiled_matmul import tiled_matmul
 from repro_torch.kernels.winograd import winograd_tiles
+from repro_torch.launch import serve
 from repro_torch.models.lenet import LeNet
+from repro_torch.models.transformer import DecoderLM
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -78,6 +81,26 @@ def test_lenet_without_device_needs_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_serving_entry_points_need_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    smoke = C.get("llama3-8b").smoke
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecoderLM(smoke).init()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3-8b", "--smoke"])
+    assert DecoderLM(smoke).init(device="cpu")["embed"].device.type == "cpu"
+
+
+def test_serve_module_without_device_fails_without_a_gpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "llama3-8b", "--smoke"], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "generated" not in out.stdout
+
+
 def test_dispatch_is_the_device_and_nothing_else():
     cpu = torch.zeros(2)
     assert use_kernel(cpu, cpu) is False
@@ -90,12 +113,16 @@ def test_dispatch_is_the_device_and_nothing_else():
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     a = torch.zeros(4, 4)
-    before = tiled_matmul.launches, winograd_tiles.launches
+    kernels = (tiled_matmul, winograd_tiles, flash_attention_fwd)
+    before = [k.launches for k in kernels]
     with pytest.raises(ValueError, match="CUDA"):
         tiled_matmul(a, a)
     with pytest.raises(ValueError, match="CUDA"):
         winograd_tiles(torch.zeros(1, 1, 1, 4, 4, 2), torch.zeros(4, 4, 2, 3))
-    assert (tiled_matmul.launches, winograd_tiles.launches) == before
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(q, q, q)
+    assert [k.launches for k in kernels] == before
 
 
 def test_unknown_block_shape_raises():
@@ -118,6 +145,10 @@ def test_build_names_libraries_by_source_hash():
     for name in build.KERNELS:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.lib_path(name).parent == ROOT / "build" / "repro_torch"
+
+
+def test_build_kernels_name_every_source():
+    assert sorted(build.KERNELS) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
