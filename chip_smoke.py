@@ -93,6 +93,25 @@ def build_phase():
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # the redesigned kernels' machine code: wgmma (HGMMA) and TMA loads
+    # (UTMALDG) in every bf16 flash instance, cp.async (LDGSTS) in tiled_matmul
+    wanted = {"flash_attention": ("attn_bf16_kernel", ("HGMMA", "UTMALDG")),
+              "tiled_matmul": ("", ("LDGSTS",))}
+    for name, (func, ops) in wanted.items():
+        counts = {}
+        for fn_sass in build.sass(name).split("Function : ")[1:]:
+            fname = fn_sass.split("\n", 1)[0].strip()
+            if func in fname:
+                counts[fname] = {op: fn_sass.count(op) for op in ops}
+        check(bool(counts), f"no {func or 'kernel'} function in {name}'s SASS")
+        for fname, c in counts.items():
+            print(f"  {name} SASS {fname[:72]}: {json.dumps(c)}")
+        for op in ops:
+            total = sum(c[op] for c in counts.values())
+            check(total > 0, f"{op} never appears in {name}'s SASS")
+            if name == "flash_attention":
+                check(all(c[op] > 0 for c in counts.values()),
+                      f"a bf16 flash instance has no {op}")
 
 
 def _close(out, ref, tol):
@@ -166,6 +185,15 @@ def matmul_phase():
     b = torch.randn(256, 256, generator=gen, device="cuda")
     for cfg in BLOCK_CONFIGS:
         cases.append((f"sweep 256^3 block {cfg}", a, b, F32_TOL, cfg))
+    # split-K: the weight gradients in bf16, and a K (5000) that is not a
+    # multiple of splits * block_k (16 splits of 5 slabs of 64, the last ragged)
+    for label, a, b in lenet_step_products(gen, "cuda"):
+        if label in ("dw0", "dw1"):
+            cases.append((f"split-K {label} bf16", a.bfloat16(), b.bfloat16(), BF16_TOL, None))
+    a = torch.randn(64, 5000, generator=gen, device="cuda")
+    b = torch.randn(5000, 32, generator=gen, device="cuda")
+    cases.append(("ragged split-K 64x5000x32 f32", a, b, F32_TOL, None))
+    cases.append(("ragged split-K 64x5000x32 bf16", a.bfloat16(), b.bfloat16(), BF16_TOL, None))
     for label, a, b, tol, cfg in cases:
         kw = {} if cfg is None else dict(block_m=cfg[0], block_n=cfg[1],
                                          block_k=cfg[2])
@@ -176,6 +204,11 @@ def matmul_phase():
         check(ok, f"tiled_matmul disagrees with matmul_ref on {label}")
         if label.startswith("lenet"):
             worst = max(worst, err)
+        if label.startswith("lenet dw0") or label.startswith("lenet dw1"):
+            again = tiled_matmul(a, b, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"two calls on {label} differ in their bits")
+            print(f"  {label}: a second call gives the same bits")
     return worst
 
 
@@ -308,6 +341,41 @@ def _time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, n=5):
+    """The device's own time for one call of ``fn``, so that host dispatch
+    and kernel time can be told apart: from ``torch.profiler`` over ``n``
+    warm calls, the mean self device time of each kernel it launches (each
+    launched once a call), summed.  A mean over the recorded launches, not
+    a total over ``n``, because late in a long run the profiler can drop
+    some of a window's kernel records (one of three fp32 flash launches
+    recorded, on an H100).
+    None if three profiles in a row record no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CPU and e.count > 0
+                   and e.self_device_time_total > 0]
+        if kernels:
+            return sum(e.self_device_time_total / e.count for e in kernels) / 1e3
+    print("  torch.profiler recorded no device time: not measured")
+    return None
+
+
+def _fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def _total(values):
+    return None if any(v is None for v in values) else sum(values)
+
+
 def _bound(flops, nbytes, peak):
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
@@ -317,10 +385,14 @@ def timing_phase(launches, products_per_step, mm_err, wino_err):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.tiled_matmul import matmul_ref, tiled_matmul
+    from repro_torch.kernels.tiled_matmul.kernel import split_k_plan
+    from repro_torch.kernels.tiled_matmul.ops import DEFAULT_BLOCK
     from repro_torch.kernels.winograd import winograd_tiles, winograd_tiles_ref
     from repro_torch.lenet_repro import CASE_W, CASE_X
-    phase("7. timing of the LeNet kernels (CUDA events, TF32 off)")
+    phase("7. timing of the LeNet kernels (CUDA events; device time from "
+          "torch.profiler; TF32 off)")
     gen = torch.Generator(device="cuda").manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     prods = lenet_step_products(gen, "cuda")
     rows = []
     flops = nbytes = 0.0
@@ -331,14 +403,18 @@ def timing_phase(launches, products_per_step, mm_err, wino_err):
         flops += f
         nbytes += nb
         t_k = _time_ms(lambda: tiled_matmul(a, b))
+        t_d = _device_ms(lambda: tiled_matmul(a, b))
         t_p = _time_ms(lambda: matmul_ref(a, b))
         t_l = _time_ms(lambda: torch.matmul(a, b))
+        t_ld = _device_ms(lambda: torch.matmul(a, b))
+        splits = split_k_plan(m, n, k, *DEFAULT_BLOCK, sms)
         bound, by = _bound(f, nb, PEAK_F32_FLOPS)
-        rows.append({"product": label, "m": m, "k": k, "n": n, "ms": t_k,
-                     "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
-                     "bound_by": by})
-        print(f"  tiled_matmul {label} ({m}x{k})@({k}x{n}): kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, torch.matmul {t_l:.4f} ms, bound "
+        rows.append({"product": label, "m": m, "k": k, "n": n, "splits": splits,
+                     "ms": t_k, "device_ms": t_d, "plain_ms": t_p, "library_ms": t_l,
+                     "library_device_ms": t_ld, "bound_ms": bound, "bound_by": by})
+        print(f"  tiled_matmul {label} ({m}x{k})@({k}x{n}), {splits} split(s): kernel "
+              f"{t_k:.4f} ms ({_fmt_ms(t_d)} on the device), plain {t_p:.4f} ms, "
+              f"torch.matmul {t_l:.4f} ms ({_fmt_ms(t_ld)} on the device), bound "
               f"{bound * 1e3:.2f} us ({by})")
     mm_bound, mm_by = _bound(flops, nbytes, PEAK_F32_FLOPS)
     mm = {"name": "tiled_matmul", "route": "cuda",
@@ -346,6 +422,7 @@ def timing_phase(launches, products_per_step, mm_err, wino_err):
           "replaces": "src/repro/kernels/tiled_matmul/kernel.py:35",
           "launches": launches["tiled_matmul"], "max_abs_err": mm_err,
           "ms": sum(r["ms"] for r in rows),
+          "device_ms": _total([r["device_ms"] for r in rows]),
           "plain_ms": sum(r["plain_ms"] for r in rows),
           "bound_ms": mm_bound, "bound_by": mm_by,
           "library_ms": sum(r["library_ms"] for r in rows),
@@ -364,19 +441,20 @@ def timing_phase(launches, products_per_step, mm_err, wino_err):
                + 24.0 * n_tiles * cout)          # A^T M A adds
     w_bytes = 4.0 * (tiles.numel() + u.numel() + n_tiles * 4 * cout)
     t_k = _time_ms(lambda: winograd_tiles(tiles, u))
+    t_d = _device_ms(lambda: winograd_tiles(tiles, u))
     t_p = _time_ms(lambda: winograd_tiles_ref(tiles, u))
     xn, wn = x.permute(0, 3, 1, 2).contiguous(), w.permute(3, 2, 0, 1).contiguous()
     t_l = _time_ms(lambda: F.conv2d(xn, wn, padding=1))
     wb, wby = _bound(w_flops, w_bytes, PEAK_F32_FLOPS)
     print(f"  winograd_tiles tiles {tuple(tiles.shape)} u {tuple(u.shape)}: "
-          f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, F.conv2d {t_l:.4f} ms, "
-          f"bound {wb * 1e3:.2f} us ({wby})")
+          f"kernel {t_k:.4f} ms ({_fmt_ms(t_d)} on the device), plain {t_p:.4f} ms, "
+          f"F.conv2d {t_l:.4f} ms, bound {wb * 1e3:.2f} us ({wby})")
     wino = {"name": "winograd_tiles", "route": "cuda",
             "source": "src/repro_torch/csrc/winograd.cu",
             "replaces": "src/repro/kernels/winograd/kernel.py:46",
             "launches": launches["winograd_tiles"], "max_abs_err": wino_err,
-            "ms": t_k, "plain_ms": t_p, "bound_ms": wb, "bound_by": wby,
-            "library_ms": t_l,
+            "ms": t_k, "device_ms": t_d, "plain_ms": t_p, "bound_ms": wb,
+            "bound_by": wby, "library_ms": t_l,
             "unit": "the SS V case study, x (64,28,28,16) w (3,3,16,32) SAME"}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -703,21 +781,44 @@ def flash_timing_phase(launches, flash_err):
     flops = 0.5 * 4.0 * b * h * s * s * d         # causal: half of QK^T and PV
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
     t_k = _time_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+    t_d = _device_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
     t_p = _time_ms(lambda: attention_ref(q, k, v, causal=True), reps=5, warmup=1)
-    t_l = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    t_l = _time_ms(sdpa)
+    t_ld = _device_ms(sdpa)
     bound, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
     print(f"  flash_attention q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal: "
-          f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s), plain "
-          f"{t_p:.4f} ms, SDPA {t_l:.4f} ms, bound {bound * 1e3:.2f} us ({by})")
+          f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s; {_fmt_ms(t_d)} on "
+          f"the device), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms ({_fmt_ms(t_ld)} on the "
+          f"device), bound {bound * 1e3:.2f} us ({by})")
+
+    # the fp32 instance, left on the CUDA cores, at a quarter of the batch
+    b32 = 1
+    q32, k32, v32 = (x[:b32].float() for x in (q, k, v))
+    f32_flops = flops * b32 / b
+    f32_bytes = 4.0 * (2 * q32.numel() + k32.numel() + v32.numel())
+    t32 = _time_ms(lambda: flash_attention_fwd(q32, k32, v32, causal=True), reps=5)
+    t32_d = _device_ms(lambda: flash_attention_fwd(q32, k32, v32, causal=True), n=3)
+    t32_l = _time_ms(lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True, enable_gqa=True), reps=5)
+    b32_bound, b32_by = _bound(f32_flops, f32_bytes, PEAK_F32_FLOPS)
+    print(f"  flash_attention q {tuple(q32.shape)} fp32 causal (CUDA cores): kernel "
+          f"{t32:.4f} ms ({f32_flops / t32 / 1e9:.1f} TFLOP/s; {_fmt_ms(t32_d)} on the "
+          f"device), SDPA {t32_l:.4f} ms, bound {b32_bound * 1e3:.2f} us ({b32_by}, "
+          f"fp32 at 67 TFLOP/s)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
             "launches": launches["flash_attention"], "max_abs_err": flash_err,
-            "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
-            "library_ms": t_l,
+            "ms": t_k, "device_ms": t_d, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": by, "library_ms": t_l, "library_device_ms": t_ld,
             "unit": f"one llama3-8b layer's prefill attention, b{b} h{h} kv{kv} "
-                    f"s=t={s} d{d} bf16 causal"}
+                    f"s=t={s} d{d} bf16 causal",
+            "fp32": {"ms": t32, "device_ms": t32_d, "library_ms": t32_l,
+                     "bound_ms": b32_bound, "bound_by": b32_by,
+                     "unit": f"b{b32} h{h} kv{kv} s=t={s} d{d} fp32 causal"}}
 
 
 def main() -> int:
@@ -745,7 +846,7 @@ def main() -> int:
         return 1
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.2e} "
-        f"ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+        f"ms={k['ms']:.4f} device_ms={k['device_ms']} plain_ms={k['plain_ms']:.4f} "
         f"library_ms={k['library_ms']:.4f} bound_us={k['bound_ms'] * 1e3:.2f} "
         f"({k['bound_by']})" for k in kernels))
     print(json.dumps({"kernels": kernels}))

@@ -2,15 +2,17 @@
 
 Every kernel is one ``csrc/<name>.cu`` with a plain C interface.  It is
 compiled at first use for ``sm_90a`` into ``build/repro_torch/`` at the
-root of the checkout (the file name carries a hash of the source, so an
-edited source is rebuilt), then loaded with :mod:`ctypes`.  Nothing is
-compiled or loaded when this module is imported.
+root of the checkout (the file name carries a hash of the source, of the
+``csrc`` headers it includes and of the compiler and link flags, so an
+edited source, header or flag is rebuilt), then loaded with :mod:`ctypes`.
+Nothing is compiled or loaded when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,6 +24,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS: Tuple[str, ...] = ("tiled_matmul", "winograd", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: libraries linked beyond the CUDA runtime (the TMA encoder is fetched
+#: through the runtime, so none)
+LINK_FLAGS: Tuple[str, ...] = ()
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -34,10 +40,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _sources(path: Path, seen: Dict[Path, bytes]) -> Dict[Path, bytes]:
+    """``path`` and every file under ``CSRC`` that it includes, transitively."""
+    if path not in seen:
+        seen[path] = text = path.read_bytes()
+        for inc in _INCLUDE.findall(text.decode()):
+            dep = (path.parent / inc).resolve()
+            if dep.is_file() and CSRC.resolve() in dep.parents:
+                _sources(dep, seen)
+    return seen
+
+
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path: its name carries a digest of the source, the
+    ``csrc`` headers it includes, and the compiler and link flags."""
+    h = hashlib.sha256()
+    for path, text in sorted(_sources((CSRC / f"{name}.cu").resolve(), {}).items()):
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+    h.update("\0".join(NVCC_FLAGS + ("--",) + LINK_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
@@ -57,7 +78,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *LINK_FLAGS]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -79,6 +101,16 @@ def build_log(name: str) -> str:
     """The compiler report of the built kernel (empty if it has none)."""
     log = lib_path(name).with_name(lib_path(name).name + ".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass(name: str) -> str:
+    """The built library's machine code (``cuobjdump -sass``), by function."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr.strip()}")
+    return out.stdout
 
 
 def load(name: str) -> ctypes.CDLL:

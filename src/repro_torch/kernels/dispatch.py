@@ -8,6 +8,8 @@ the call raises.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 
@@ -23,3 +25,13 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError("kernel inputs must all lie on cuda or all on the cpu; "
                      f"got {sorted(kinds)}")
+
+
+def launch(fn: Callable[..., int], device: torch.device, *args) -> int:
+    """Call a kernel's C entry point as ``fn(*args, stream)`` on ``device``'s
+    current stream and return its error code.  The device is entered only
+    when it is not the current one: the launch's host path stays short."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -3,8 +3,10 @@
 
 The port of ``repro.kernels.flash_attention.kernel.flash_attention_fwd``:
 online-softmax attention with GQA, causal and sliding-window masks and an
-optional tanh softcap, m/l/acc in fp32, output in q's dtype.  The CUDA
-source is built at first call; see the note at its top for the design.
+optional tanh softcap, m/l/acc in fp32, output in q's dtype.  bf16 runs on
+the tensor cores (``wgmma``) with q, k and v read by TMA, fp32 on the CUDA
+cores.  The CUDA source is built at first call; see the note at its top for
+the design.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.dispatch import launch
 
 #: the head dims compiled into the library; any other raises
 HEAD_DIMS = (32, 64, 128)
@@ -40,6 +43,27 @@ def check_rows_see_a_key(s: int, t: int, window: int) -> None:
                          f"(s={s}, t={t}, window={window})")
 
 
+def check_tma_layout(name: str, shape, strides, itemsize: int,
+                     data_ptr: int) -> None:
+    """Raise unless TMA can read a (b, heads, s, d) tensor of this layout.
+
+    The bf16 kernel reads q, k and v through tensor maps, which need a base
+    address on a 16-byte boundary and, for every dim the kernel steps (all
+    but d, which must have unit stride), a byte stride that is a positive
+    multiple of 16.  A dim of extent 1 is never stepped, so its stride does
+    not matter.  The model's (b, s, heads, d) views at d = 32, 64 and 128
+    all qualify.
+    """
+    if data_ptr % 16:
+        raise ValueError(f"flash_attention (bf16): {name}'s base address is not "
+                         f"16-byte aligned, as TMA needs")
+    for dim, (n, st) in enumerate(zip(shape[:3], strides[:3])):
+        if n > 1 and (st <= 0 or (st * itemsize) % 16):
+            raise ValueError(f"flash_attention (bf16): {name}'s stride {st} on dim "
+                             f"{dim} is not a positive multiple of 16 bytes, as TMA "
+                             f"needs")
+
+
 def _lib():
     """The C entry point, built, loaded and bound at the first call only."""
     global _FN
@@ -58,7 +82,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the card.
 
     Takes fp32 or bf16 CUDA tensors of one dtype and d in ``HEAD_DIMS``,
-    with any non-negative strides whose last one is 1: the model's
+    with any non-negative strides whose last one is 1 (bf16: as
+    :func:`check_tma_layout` also requires): the model's
     (b, s, heads, d) activations are handed in as transposed views, and the
     output is laid out like q, so neither side copies.  Ragged s and t are
     masked in the kernel (no padding); every query row must see a key.
@@ -89,14 +114,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)   # q's layout (strides) when q is dense
     if out.numel() == 0:
         return out
-    fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPE_CODES[q.dtype], b, h, kvh, s, t, d,
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_tma_layout(name, x.shape, x.stride(), x.element_size(), x.data_ptr())
+    rc = launch(_lib(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), _DTYPE_CODES[q.dtype], b, h, kvh, s, t, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *out.stride()[:3], int(causal), int(window),
-                1.0 / d ** 0.5, float(softcap), stream)
+                1.0 / d ** 0.5, float(softcap))
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed with CUDA error {rc} "
                            f"at q {tuple(q.shape)}, k {tuple(k.shape)}")

@@ -20,11 +20,14 @@ import torch
 from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
                                                  flash_attention_fwd)
 from repro_torch.kernels.tiled_matmul import BLOCK_CONFIGS, matmul, matmul_ref, tiled_matmul
+from repro_torch.kernels.tiled_matmul.kernel import split_k_plan
 from repro_torch.kernels.winograd import (conv3x3_ref, conv3x3_winograd,
                                           winograd_tiles, winograd_tiles_ref)
 
 MM_SHAPES = [(128, 128, 128), (200, 300, 150), (64, 512, 32), (257, 129, 65),
-             (100352, 25, 6), (25, 100352, 6)]
+             (100352, 25, 6), (25, 100352, 6),
+             (100, 30, 50),     # K smaller than block_k
+             (64, 5000, 32)]    # 16 K-splits of 5 slabs, the last one ragged
 WINO_CASES = [(1, 8, 4, 8), (2, 14, 8, 16), (1, 13, 3, 5), (1, 10, 64, 64),
               (64, 28, 16, 32)]
 
@@ -61,6 +64,42 @@ def test_tiled_matmul_kernel(cuda, m, k, n, dtype):
     assert out.dtype == dtype and tuple(out.shape) == (m, n)
     err, scale = _err(out, matmul_ref(a, b))
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
+
+
+# the weight gradients of conv1 and conv2 (LeNet-full, batch 128) as the
+# backward hands them in: A^T is a transposed view (a 100- and a 600-byte
+# row stride), dY is contiguous
+SPLIT_K_GRADS = [(100352, 25, 6), (12800, 150, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", SPLIT_K_GRADS, ids=["dw0", "dw1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_matmul_split_k_weight_gradients(cuda, m, k, n, dtype):
+    a = _randn(4, m, k, device=cuda).to(dtype)
+    dy = _randn(5, m, n, device=cuda).to(dtype)
+    assert split_k_plan(k, n, m, 64, 64, 64,
+                        torch.cuda.get_device_properties(cuda).multi_processor_count) >= 2
+    before = tiled_matmul.launches
+    out = tiled_matmul(a.t(), dy)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == before + 1      # one per product, whatever the splits
+    err, scale = _err(out, matmul_ref(a.t(), dy))
+    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,transposed", [(100352, 25, 6, True), (12800, 150, 16, True),
+                                              (64, 5000, 32, False), (100, 30, 50, False)])
+def test_tiled_matmul_repeats_bit_for_bit(cuda, m, k, n, transposed):
+    """The splits are summed in a fixed order, without atomics."""
+    if transposed:
+        a, b = _randn(4, m, k, device=cuda).t(), _randn(5, m, n, device=cuda)
+    else:
+        a, b = _randn(4, m, k, device=cuda), _randn(5, k, n, device=cuda)
+    first = tiled_matmul(a, b)
+    for _ in range(3):
+        assert torch.equal(tiled_matmul(a, b), first)
 
 
 @pytest.mark.cuda
@@ -128,10 +167,14 @@ def test_winograd_refuses_what_it_does_not_take(cuda):
         winograd_tiles(tiles.transpose(1, 2), u)
 
 
+# GQA groups 1, 2, 4 and 8 over head dims 32, 64 and 128; lengths on and off
+# the bf16 kernel's 128-row tiles
 FLASH_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
-                (1, 4, 4, 384, 64), (2, 8, 2, 200, 128), (1, 4, 2, 77, 64)]
+                (1, 4, 4, 384, 64), (2, 8, 2, 200, 128), (1, 4, 2, 77, 64),
+                (1, 8, 8, 77, 128), (1, 8, 1, 1, 32), (1, 16, 4, 2000, 128)]
+# windows of 64 and 200 cross the 128-key tiles' edges
 FLASH_MASKS = [(True, 0, 0.0), (True, 64, 0.0), (False, 0, 0.0), (True, 0, 30.0),
-               (False, 64, 30.0)]
+               (False, 64, 30.0), (True, 200, 0.0)]
 
 
 def _flash_inputs(b, h, kv, s, d, t=None, dtype=torch.float32, device=None):
@@ -157,15 +200,17 @@ def test_flash_attention_kernel(cuda, b, h, kv, s, d, causal, window, softcap, d
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,t", [(200, 200), (256, 200), (128, 200), (1, 300)])
+@pytest.mark.parametrize("s,t", [(200, 200), (256, 200), (128, 200), (1, 300), (77, 77),
+                                 (1, 1), (2000, 2000), (77, 333)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
-def test_flash_attention_ragged(cuda, s, t, causal, window):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_ragged(cuda, s, t, causal, window, dtype):
     """Ragged s != t, masked in the kernel: held to attention_ref (the
     reference wrapper's unmasked pads are wrong for causal s > t)."""
-    q, k, v = _flash_inputs(1, 4, 2, s, 64, t=t, device=cuda)
+    q, k, v = _flash_inputs(1, 4, 2, s, 64, t=t, dtype=dtype, device=cuda)
     out = flash_attention(q, k, v, causal=causal, window=window)
     err, scale = _err(out, attention_ref(q, k, v, causal=causal, window=window))
-    assert err <= 2e-3 * scale
+    assert err <= (2e-2 if dtype == torch.bfloat16 else 2e-3) * scale
 
 
 @pytest.mark.cuda
@@ -208,3 +253,23 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
         flash_attention_fwd(q, k, v.cpu())
     with pytest.raises(ValueError, match="unit stride"):
         flash_attention_fwd(q.transpose(2, 3), k, v)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_refuses_what_tma_cannot_read(cuda):
+    """bf16 reads q, k and v through TMA: a base off a 16-byte boundary or a
+    byte stride that is not a multiple of 16 raises; fp32 takes both."""
+    _, k, v = _flash_inputs(1, 4, 2, 64, 64, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        shifted = _randn(15, 1, 4, 64, 72, device=cuda).to(dtype)[..., 1:65]
+        padded = _randn(16, 1, 4, 64, 68, device=cuda).to(dtype)[..., :64]
+        kd, vd = k.to(dtype), v.to(dtype)
+        for q, match in ((shifted, "16-byte aligned"), (padded, "multiple of 16 bytes")):
+            if dtype == torch.bfloat16:
+                before = flash_attention_fwd.launches
+                with pytest.raises(ValueError, match=match):
+                    flash_attention_fwd(q, kd, vd)
+                assert flash_attention_fwd.launches == before
+            else:
+                err, scale = _err(flash_attention_fwd(q, kd, vd), attention_ref(q, kd, vd))
+                assert err <= 2e-3 * scale
