@@ -42,8 +42,13 @@ SRC = ROOT / "src"
 
 # data-sheet peaks of one H100 SXM (dense, at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+L2_FLUSH_BYTES = 64 << 20    # more than the 50 MB L2
+
+# a ResNet-50 conv2_x 3x3 layer (He et al. 2015, arXiv:1512.03385) at batch 32
+RESNET_X, RESNET_W = (32, 56, 56, 64), (3, 3, 64, 64)
 
 # the serving path: llama3-8b FULL, batch 4, 2048-token prompts, 16 new tokens
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 16
@@ -95,23 +100,28 @@ def build_phase():
                 print(f"  {name}: {line.strip()}")
     # the redesigned kernels' machine code: wgmma (HGMMA) and TMA loads
     # (UTMALDG) in every bf16 flash instance, cp.async (LDGSTS) in tiled_matmul
-    wanted = {"flash_attention": ("attn_bf16_kernel", ("HGMMA", "UTMALDG")),
-              "tiled_matmul": ("", ("LDGSTS",))}
-    for name, (func, ops) in wanted.items():
-        counts = {}
-        for fn_sass in build.sass(name).split("Function : ")[1:]:
-            fname = fn_sass.split("\n", 1)[0].strip()
-            if func in fname:
-                counts[fname] = {op: fn_sass.count(op) for op in ops}
-        check(bool(counts), f"no {func or 'kernel'} function in {name}'s SASS")
-        for fname, c in counts.items():
-            print(f"  {name} SASS {fname[:72]}: {json.dumps(c)}")
-        for op in ops:
-            total = sum(c[op] for c in counts.values())
-            check(total > 0, f"{op} never appears in {name}'s SASS")
-            if name == "flash_attention":
-                check(all(c[op] > 0 for c in counts.values()),
-                      f"a bf16 flash instance has no {op}")
+    counts = sass_counts("flash_attention", "attn_bf16_kernel", ("HGMMA", "UTMALDG"))
+    check(all(c[op] > 0 for c in counts.values() for op in c),
+          "a bf16 flash instance has no HGMMA or no UTMALDG")
+    sass_counts("tiled_matmul", "", ("LDGSTS",))
+
+
+def sass_counts(name, func, ops):
+    """Count each of ``ops`` in the SASS of every function of library
+    ``name`` whose name holds ``func``; print them, and fail if a function
+    is missing or an op appears in none of them."""
+    from repro_torch.kernels import build
+    counts = {}
+    for fn_sass in build.sass(name).split("Function : ")[1:]:
+        fname = fn_sass.split("\n", 1)[0].strip()
+        if func in fname:
+            counts[fname] = {op: fn_sass.count(op) for op in ops}
+    check(bool(counts), f"no {func or 'kernel'} function in {name}'s SASS")
+    for fname, c in counts.items():
+        print(f"  {name} SASS {fname[:72]}: {json.dumps(c)}")
+    for op in ops:
+        check(sum(c[op] for c in counts.values()) > 0, f"{op} never appears in {name}'s SASS")
+    return counts
 
 
 def _close(out, ref, tol):
@@ -213,39 +223,90 @@ def matmul_phase():
 
 
 def winograd_phase():
+    """The fused Winograd conv against the direct conv and its plain
+    version, the tiles entry against winograd_tiles_ref, both in bf16, the
+    bits of a second call, the compiled kernel's shared memory against the
+    plan's, and the tensor-core products (HMMA) and cp.async copies
+    (LDGSTS) in its machine code.  Returns the fp32 errors at the case
+    study: (fused conv vs its plain version, tiles vs winograd_tiles_ref)."""
     import torch
     from repro_torch.kernels.winograd import (conv3x3_ref, conv3x3_winograd,
-                                              winograd_tiles, winograd_tiles_ref)
+                                              conv3x3_winograd_ref, filter_transform,
+                                              winograd_conv, winograd_tiles,
+                                              winograd_tiles_ref)
+    from repro_torch.kernels.winograd.kernel import kernel_smem_bytes, smem_bytes
     from repro_torch.lenet_repro import CASE_W, CASE_X
-    phase("4. winograd_tiles against winograd_tiles_ref and conv3x3_ref")
+    phase("4. winograd_conv and winograd_tiles against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    case_err = None
-    cases = [(CASE_X, CASE_W, "SAME"), (CASE_X, CASE_W, "VALID"),
-             ((8, 28, 28, 64), (3, 3, 64, 64), "SAME")]
-    for xs, ws, pad in cases:
+    errs = {}
+    bf16 = torch.bfloat16
+    cases = [(CASE_X, CASE_W), ((8, 28, 28, 64), (3, 3, 64, 64)),
+             ((1, 13, 13, 3), (3, 3, 3, 5))]
+    for xs, ws in cases:
         x = torch.randn(xs, generator=gen, device="cuda")
         w = torch.randn(ws, generator=gen, device="cuda")
-        # the tiling conv3x3_winograd hands the kernel: 2x2 outputs a tile
-        oh, ow = (xs[1], xs[2]) if pad == "SAME" else (xs[1] - 2, xs[2] - 2)
-        tiles = torch.randn(xs[0], (oh + 1) // 2, (ow + 1) // 2, 4, 4, xs[3],
+        u = filter_transform(w, torch.float32)
+        for pad in ("SAME", "VALID"):
+            y = conv3x3_winograd(x, w, pad)
+            torch.cuda.synchronize()
+            check(y.dtype == torch.float32, f"fused conv returned {y.dtype}")
+            # the transforms' extra roundings against a direct conv: Winograd
+            # F(2x2,3x3) amplifies fp32 rounding by the transforms' ~4x growth
+            err_c, ok_c = _close(y, conv3x3_ref(x, w, pad), 4 * F32_TOL)
+            err_p, ok_p = _close(y, conv3x3_winograd_ref(x, u, pad), F32_TOL)
+            yb = conv3x3_winograd(x.to(bf16), w.to(bf16), pad)
+            err_b, ok_b = _close(yb, conv3x3_winograd_ref(x.to(bf16), filter_transform(
+                w.to(bf16), bf16), pad), BF16_TOL)
+            print(f"  conv x {xs} w {ws} {pad}: vs conv3x3_ref {err_c:.3e} (tol "
+                  f"{4 * F32_TOL}), vs conv3x3_winograd_ref {err_p:.3e} (tol {F32_TOL}); "
+                  f"bf16 {err_b:.3e} (tol {BF16_TOL})")
+            check(ok_c, f"winograd_conv disagrees with conv3x3_ref at {xs} {pad}")
+            check(ok_p, f"winograd_conv disagrees with conv3x3_winograd_ref at {xs} {pad}")
+            check(yb.dtype == bf16 and ok_b, f"bf16 winograd_conv disagrees at {xs} {pad}")
+            if (xs, pad) == (CASE_X, "SAME"):
+                errs["conv"] = err_p
+        # the tiles entry on the tiles this conv's SAME tiling gives
+        tiles = torch.randn(xs[0], (xs[1] + 1) // 2, (xs[2] + 1) // 2, 4, 4, xs[3],
                             generator=gen, device="cuda")
-        u = torch.randn(4, 4, ws[2], ws[3], generator=gen, device="cuda")
-        y = winograd_tiles(tiles, u)
-        torch.cuda.synchronize()
-        err_t, ok_t = _close(y, winograd_tiles_ref(tiles, u), F32_TOL)
-        # the transform's extra roundings against a direct conv: Winograd
-        # F(2x2,3x3) amplifies fp32 rounding by the transforms' ~4x growth
-        err_c, ok_c = _close(conv3x3_winograd(x, w, pad),
-                             conv3x3_ref(x, w, pad), 4 * F32_TOL)
-        print(f"  x {xs} w {ws} {pad}: tiles {tuple(tiles.shape)} max_abs_err "
-              f"{err_t:.3e} (tol {F32_TOL}), conv max_abs_err {err_c:.3e} "
-              f"(tol {4 * F32_TOL})")
-        check(ok_t, f"winograd_tiles disagrees with winograd_tiles_ref at "
-                    f"tiles {tuple(tiles.shape)}")
-        check(ok_c, f"conv3x3_winograd disagrees with conv3x3_ref at {xs} {pad}")
-        if (xs, ws, pad) == (CASE_X, CASE_W, "SAME"):
-            case_err = err_t
-    return case_err
+        yt = winograd_tiles(tiles, u)
+        err_t, ok_t = _close(yt, winograd_tiles_ref(tiles, u), F32_TOL)
+        tb, ub = tiles.to(bf16), u.to(bf16)
+        err_tb, ok_tb = _close(winograd_tiles(tb, ub), winograd_tiles_ref(tb, ub), BF16_TOL)
+        print(f"  tiles {tuple(tiles.shape)} u {tuple(u.shape)}: max_abs_err {err_t:.3e} "
+              f"(tol {F32_TOL}); bf16 {err_tb:.3e} (tol {BF16_TOL})")
+        check(ok_t, f"winograd_tiles disagrees with winograd_tiles_ref at {tuple(tiles.shape)}")
+        check(ok_tb, f"bf16 winograd_tiles disagrees at {tuple(tiles.shape)}")
+        if xs == CASE_X:
+            errs["tiles"] = err_t
+            again = (winograd_conv(x, u, "SAME"), winograd_tiles(tiles, u))
+            torch.cuda.synchronize()
+            check(torch.equal(again[0], winograd_conv(x, u, "SAME"))
+                  and torch.equal(again[1], yt), "two winograd calls differ in their bits")
+            print("  case study: a second call of each entry gives the same bits")
+    # a strided x: a slice of wider pixels, transposed, one channel in (rows
+    # off a 16-byte boundary: 4-byte copies in fp32, plain loads in bf16)
+    big = torch.randn(4, 30, 29, 40, generator=gen, device="cuda")
+    w = torch.randn(3, 3, 32, 24, generator=gen, device="cuda")
+    views = (("channel slice, transposed", lambda t: t[..., :32].transpose(1, 2)),
+             ("one channel in", lambda t: t[..., 1:33]))
+    for label, view in views:
+        for dtype, tol in ((torch.float32, F32_TOL), (bf16, BF16_TOL)):
+            x, u = view(big.to(dtype)), filter_transform(w, dtype)
+            check(x.stride(3) == 1 and not x.is_contiguous(), "strided x is contiguous")
+            for pad in ("SAME", "VALID"):
+                err, ok = _close(winograd_conv(x, u, pad),
+                                 conv3x3_winograd_ref(x, u, pad), tol)
+                check(ok, f"winograd_conv on a strided x ({label}, {dtype}, {pad}): "
+                          f"max_abs_err {err}")
+        print(f"  strided x {tuple(x.shape)} strides {x.stride()} ({label}): fp32 and "
+              f"bf16, SAME and VALID agree")
+    for dtype in (torch.float32, bf16):
+        for image in (True, False):
+            check(kernel_smem_bytes(dtype, image) == smem_bytes(dtype, image),
+                  f"the plan's shared memory differs from the kernel's ({dtype}, {image})")
+    counts = sass_counts("winograd", "wino_kernel", ("HMMA", "LDGSTS"))
+    check(all(c["HMMA"] > 0 for c in counts.values()), "a winograd instance has no HMMA")
+    return errs
 
 
 def flash_phase():
@@ -296,12 +357,13 @@ def main_path_phase():
     import torch
     from repro_torch import lenet_repro
     from repro_torch.kernels.tiled_matmul import tiled_matmul
-    from repro_torch.kernels.winograd import winograd_tiles
+    from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
     phase("6. main path: train LeNet, capture + simulate, SS V loop")
-    tiled_matmul.launches = 0
-    winograd_tiles.launches = 0
+    for kern in (tiled_matmul, winograd_conv, winograd_tiles):
+        kern.launches = 0
     res = lenet_repro.run(device="cuda", hw="h100")
     launches = {"tiled_matmul": tiled_matmul.launches,
+                "winograd_conv": winograd_conv.launches,
                 "winograd_tiles": winograd_tiles.launches}
     torch.cuda.synchronize()
     print(f"  main-path launches: {json.dumps(launches)}; "
@@ -313,7 +375,9 @@ def main_path_phase():
     check(launches["tiled_matmul"] >= expected,
           f"tiled_matmul launched {launches['tiled_matmul']} times, expected "
           f">= {expected}")
-    check(launches["winograd_tiles"] > 0, "winograd_tiles never launched")
+    # the section V loop's Winograd conv is one fused launch; the tiles
+    # entry is not on the path
+    check(launches["winograd_conv"] > 0, "winograd_conv never launched")
     s = res["report"].summary()
     check(s["total_seconds"] > 0 and math.isfinite(s["total_seconds"]),
           f"bad simulated step time {s['total_seconds']}")
@@ -341,11 +405,50 @@ def _time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, n=5):
+def _cold_ms(fn, flush, reps=10):
+    """CUDA-event time of one call of ``fn`` with the L2 cache flushed
+    before it (``flush``, a 64 MB buffer, written between calls), mean over
+    ``reps``."""
+    import torch
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def _device_events(fn, n=5):
+    """(device ms, device ops) a call of ``fn``: every kernel and copy the
+    device ran under ``torch.profiler`` over ``n`` warm calls, summed and
+    divided by ``n``.  None, None if nothing was recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+    if not rows:
+        return None, None
+    return (sum(e.self_device_time_total for e in rows) / n / 1e3,
+            sum(e.count for e in rows) / n)
+
+
+def _device_ms(fn, n=5, match=""):
     """The device's own time for one call of ``fn``, so that host dispatch
     and kernel time can be told apart: from ``torch.profiler`` over ``n``
     warm calls, the mean self device time of each kernel it launches (each
-    launched once a call), summed.  A mean over the recorded launches, not
+    launched once a call) whose name holds ``match``, summed.  A mean over the recorded launches, not
     a total over ``n``, because late in a long run the profiler can drop
     some of a window's kernel records (one of three fp32 flash launches
     recorded, on an H100).
@@ -361,7 +464,7 @@ def _device_ms(fn, n=5):
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type != torch.autograd.DeviceType.CPU and e.count > 0
-                   and e.self_device_time_total > 0]
+                   and e.self_device_time_total > 0 and match in e.key]
         if kernels:
             return sum(e.self_device_time_total / e.count for e in kernels) / 1e3
     print("  torch.profiler recorded no device time: not measured")
@@ -381,14 +484,11 @@ def _bound(flops, nbytes, peak):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def timing_phase(launches, products_per_step, mm_err, wino_err):
+def timing_phase(launches, products_per_step, mm_err, wino_errs):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.tiled_matmul import matmul_ref, tiled_matmul
     from repro_torch.kernels.tiled_matmul.kernel import split_k_plan
     from repro_torch.kernels.tiled_matmul.ops import DEFAULT_BLOCK
-    from repro_torch.kernels.winograd import winograd_tiles, winograd_tiles_ref
-    from repro_torch.lenet_repro import CASE_W, CASE_X
     phase("7. timing of the LeNet kernels (CUDA events; device time from "
           "torch.profiler; TF32 off)")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -429,37 +529,145 @@ def timing_phase(launches, products_per_step, mm_err, wino_err):
           "unit": f"the {products_per_step} products of one LeNet-full "
                   "training step (batch 128)"}
 
-    x = torch.randn(CASE_X, generator=gen, device="cuda")
-    w = torch.randn(CASE_W, generator=gen, device="cuda")
-    b_, h, w_, cin = CASE_X
-    cout = CASE_W[3]
-    tiles = torch.randn(b_, h // 2, w_ // 2, 4, 4, cin, generator=gen, device="cuda")
-    u = torch.randn(4, 4, cin, cout, generator=gen, device="cuda")
-    n_tiles = b_ * (h // 2) * (w_ // 2)
-    w_flops = (2.0 * 16 * n_tiles * cin * cout   # the 16 contractions
-               + 32.0 * n_tiles * cin            # B^T d B adds
-               + 24.0 * n_tiles * cout)          # A^T M A adds
-    w_bytes = 4.0 * (tiles.numel() + u.numel() + n_tiles * 4 * cout)
-    t_k = _time_ms(lambda: winograd_tiles(tiles, u))
-    t_d = _device_ms(lambda: winograd_tiles(tiles, u))
-    t_p = _time_ms(lambda: winograd_tiles_ref(tiles, u))
-    xn, wn = x.permute(0, 3, 1, 2).contiguous(), w.permute(3, 2, 0, 1).contiguous()
-    t_l = _time_ms(lambda: F.conv2d(xn, wn, padding=1))
-    wb, wby = _bound(w_flops, w_bytes, PEAK_F32_FLOPS)
-    print(f"  winograd_tiles tiles {tuple(tiles.shape)} u {tuple(u.shape)}: "
-          f"kernel {t_k:.4f} ms ({_fmt_ms(t_d)} on the device), plain {t_p:.4f} ms, "
-          f"F.conv2d {t_l:.4f} ms, bound {wb * 1e3:.2f} us ({wby})")
-    wino = {"name": "winograd_tiles", "route": "cuda",
-            "source": "src/repro_torch/csrc/winograd.cu",
-            "replaces": "src/repro/kernels/winograd/kernel.py:46",
-            "launches": launches["winograd_tiles"], "max_abs_err": wino_err,
-            "ms": t_k, "device_ms": t_d, "plain_ms": t_p, "bound_ms": wb,
-            "bound_by": wby, "library_ms": t_l,
-            "unit": "the SS V case study, x (64,28,28,16) w (3,3,16,32) SAME"}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_products.json").write_text(json.dumps(rows, indent=1))
-    return [mm, wino]
+    return [mm] + _winograd_timing(gen, launches, wino_errs)
+
+
+def _unfused_conv3x3_winograd(x, w, padding):
+    """The Winograd conv as the port ran it before the fused kernel, written
+    out: two pads, the tile copy, G copied from numpy on every call, U, the
+    tiles op and the reassembly copy."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.winograd.ops import winograd_tiles_op
+    from repro_torch.kernels.winograd.ref import G
+    b, H, W, cin = x.shape
+    cout = w.shape[-1]
+    if padding == "SAME":
+        x = F.pad(x, (0, 0, 1, 1, 1, 1))
+        H, W = H + 2, W + 2
+    oh, ow = H - 2, W - 2
+    th, tw = (oh + 1) // 2, (ow + 1) // 2
+    x = F.pad(x, (0, 0, 0, 2 * tw + 2 - W, 0, 2 * th + 2 - H))
+    tiles = x.unfold(1, 4, 2).unfold(2, 4, 2).permute(0, 1, 2, 4, 5, 3).contiguous()
+    g = torch.as_tensor(G, device=x.device, dtype=x.dtype)
+    u = torch.einsum("ij,jkcf,lk->ilcf", g, w.to(x.dtype), g).contiguous()
+    y = winograd_tiles_op(tiles, u)
+    out = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * th, 2 * tw, cout)
+    return out[:, :oh, :ow]
+
+
+def _winograd_timing(gen, launches, errs):
+    """The Winograd kernel at the section V case study and at a ResNet-50
+    conv2_x layer, SAME: the fused conv warm and with L2 flushed, the whole
+    ``conv3x3_winograd`` call and the unfused program it replaces (device
+    time and device ops a call), the tiles entry, the plain version, and
+    ``F.conv2d`` (TF32 off) on NCHW and on the NHWC tensor viewed as
+    channels_last; the bound uses TF32's peak, as the products run on the
+    tensor cores.  Returns the ``winograd_tiles`` and ``winograd_conv``
+    records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.winograd import (conv3x3_winograd, conv3x3_winograd_ref,
+                                              filter_transform, winograd_conv,
+                                              winograd_plan, winograd_tiles,
+                                              winograd_tiles_ref)
+    from repro_torch.lenet_repro import CASE_W, CASE_X
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    shapes = {"case": (CASE_X, CASE_W), "resnet": (RESNET_X, RESNET_W)}
+    out = {}
+    for key, (xs, ws) in shapes.items():
+        x = torch.randn(xs, generator=gen, device="cuda")
+        w = torch.randn(ws, generator=gen, device="cuda")
+        u = filter_transform(w, torch.float32)
+        b, h, wd, cin = xs
+        cout = ws[3]
+        plan = winograd_plan(b, h, wd, cin, cout, "SAME")
+        n_tiles = b * plan.tiles[0] * plan.tiles[1]
+        flops = (2.0 * 16 * n_tiles * cin * cout   # the 16 contractions
+                 + 32.0 * n_tiles * cin            # B^T d B adds
+                 + 24.0 * n_tiles * cout)          # A^T M A adds
+        n_out = b * plan.oh * plan.ow * cout
+        r = {"x": xs, "w": ws, "patch": plan.patch, "grid": plan.grid}
+
+        def conv():
+            return winograd_conv(x, u, "SAME")
+
+        r["ms"], r["device_ms"] = _time_ms(conv), _device_ms(conv)
+        r["cold_ms"] = _cold_ms(conv, flush)
+        r["cold_device_ms"] = _device_ms(lambda: (flush.fill_(1.0), conv()),
+                                         match="wino_kernel")
+        r["bound_ms"], r["bound_by"] = _bound(flops, 4.0 * (x.numel() + u.numel() + n_out),
+                                              PEAK_TF32_FLOPS)
+        for name, fn in (("call", lambda: conv3x3_winograd(x, w, "SAME")),
+                         ("unfused_call", lambda: _unfused_conv3x3_winograd(x, w, "SAME"))):
+            ms = _time_ms(fn)
+            dev, ops = _device_events(fn)
+            r[name] = {"ms": ms, "device_ms": dev, "device_ops": ops}
+        r["plain_ms"] = _time_ms(lambda: conv3x3_winograd_ref(x, u, "SAME"), reps=5, warmup=1)
+        tiles = torch.randn(b, *plan.tiles, 4, 4, cin, generator=gen, device="cuda")
+        r["tiles"] = {"ms": _time_ms(lambda: winograd_tiles(tiles, u)),
+                      "device_ms": _device_ms(lambda: winograd_tiles(tiles, u)),
+                      "plain_ms": _time_ms(lambda: winograd_tiles_ref(tiles, u), reps=5,
+                                           warmup=1)}
+        r["tiles"]["bound_ms"], r["tiles"]["bound_by"] = _bound(
+            flops, 4.0 * (tiles.numel() + u.numel() + n_tiles * 4 * cout), PEAK_TF32_FLOPS)
+        xn, wn = x.permute(0, 3, 1, 2).contiguous(), w.permute(3, 2, 0, 1).contiguous()
+        xcl, wcl = x.permute(0, 3, 1, 2), wn.contiguous(memory_format=torch.channels_last)
+        for name, (xi, wi) in (("library_nchw", (xn, wn)), ("library", (xcl, wcl))):
+            r[f"{name}_ms"] = _time_ms(lambda: F.conv2d(xi, wi, padding=1))
+            r[f"{name}_device_ms"] = _device_ms(lambda: F.conv2d(xi, wi, padding=1))
+        xb, ub = x.bfloat16(), filter_transform(w, torch.bfloat16)
+        xbl, wbl = xcl.bfloat16(), wcl.bfloat16()
+        r["bf16"] = {"device_ms": _device_ms(lambda: winograd_conv(xb, ub, "SAME")),
+                     "library_device_ms": _device_ms(lambda: F.conv2d(xbl, wbl, padding=1))}
+        r["bf16"]["bound_ms"], r["bf16"]["bound_by"] = _bound(
+            flops, 2.0 * (x.numel() + u.numel() + n_out), PEAK_BF16_FLOPS)
+        print(f"  winograd_conv x {xs} w {ws} SAME ({plan.grid} blocks of "
+              f"{plan.patch[0]}x{plan.patch[1]} tiles): warm {r['ms']:.4f} ms "
+              f"({_fmt_ms(r['device_ms'])} on the device), L2 flushed {r['cold_ms']:.4f} ms "
+              f"({_fmt_ms(r['cold_device_ms'])} on the device); bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, TF32 at 495 TFLOP/s)")
+        for name in ("call", "unfused_call"):
+            c = r[name]
+            print(f"    {'conv3x3_winograd' if name == 'call' else 'unfused program'}: "
+                  f"{c['ms']:.4f} ms, {_fmt_ms(c['device_ms'])} on the device over "
+                  f"{c['device_ops']:.0f} device ops a call")
+        print(f"    winograd_tiles on tiles {tuple(tiles.shape)}: {r['tiles']['ms']:.4f} ms "
+              f"({_fmt_ms(r['tiles']['device_ms'])} on the device), bound "
+              f"{r['tiles']['bound_ms'] * 1e3:.2f} us ({r['tiles']['bound_by']}); plain "
+              f"{r['tiles']['plain_ms']:.4f} ms")
+        print(f"    plain conv3x3_winograd_ref {r['plain_ms']:.4f} ms; F.conv2d (TF32 off) "
+              f"NCHW {r['library_nchw_ms']:.4f} ms ({_fmt_ms(r['library_nchw_device_ms'])} "
+              f"on the device), channels_last {r['library_ms']:.4f} ms "
+              f"({_fmt_ms(r['library_device_ms'])} on the device)")
+        print(f"    bf16: winograd_conv {_fmt_ms(r['bf16']['device_ms'])} on the device, "
+              f"F.conv2d channels_last {_fmt_ms(r['bf16']['library_device_ms'])}; bound "
+              f"{r['bf16']['bound_ms'] * 1e3:.2f} us ({r['bf16']['bound_by']})")
+        out[key] = r
+    case = out["case"]
+    unit = "the SS V case study, x (64,28,28,16) w (3,3,16,32) SAME"
+    tiles_rec = {"name": "winograd_tiles", "route": "cuda",
+                 "source": "src/repro_torch/csrc/winograd.cu",
+                 "replaces": "src/repro/kernels/winograd/kernel.py:46",
+                 "launches": launches["winograd_tiles"], "max_abs_err": errs["tiles"],
+                 "ms": case["tiles"]["ms"], "device_ms": case["tiles"]["device_ms"],
+                 "plain_ms": case["tiles"]["plain_ms"],
+                 "bound_ms": case["tiles"]["bound_ms"], "bound_by": case["tiles"]["bound_by"],
+                 "library_ms": case["library_nchw_ms"],
+                 "library_device_ms": case["library_nchw_device_ms"], "peak": "tf32",
+                 "unit": f"the tiles entry (not on the main path) on the tiles of {unit}",
+                 "resnet": out["resnet"]["tiles"]}
+    conv_rec = {"name": "winograd_conv", "route": "cuda",
+                "source": "src/repro_torch/csrc/winograd.cu",
+                "replaces": "src/repro/kernels/winograd/kernel.py:46",
+                "launches": launches["winograd_conv"], "max_abs_err": errs["conv"],
+                "peak": "tf32", "unit": f"{unit}, x NHWC to y NHWC in one launch",
+                **{k: v for k, v in case.items() if k != "tiles"},
+                "resnet": {k: v for k, v in out["resnet"].items() if k != "tiles"}}
+    return [tiles_rec, conv_rec]
 
 
 def step_phase():
@@ -603,7 +811,7 @@ def serve_phase():
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.tiled_matmul import tiled_matmul
-    from repro_torch.kernels.winograd import winograd_tiles
+    from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.runtime.server import Server, ServeStats
@@ -611,11 +819,12 @@ def serve_phase():
     phase(f"9. main path: serve {SERVE_ARCH} FULL, batch {SERVE_BATCH}, prompt "
           f"{SERVE_PROMPT}, {SERVE_NEW} new tokens")
     torch.cuda.reset_peak_memory_stats()
-    for kern in (tiled_matmul, winograd_tiles, flash_attention_fwd):
+    for kern in (tiled_matmul, winograd_conv, winograd_tiles, flash_attention_fwd):
         kern.launches = 0
     res = serve.run(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                     max_new=SERVE_NEW, device="cuda")
     launches = {"tiled_matmul": tiled_matmul.launches,
+                "winograd_conv": winograd_conv.launches,
                 "winograd_tiles": winograd_tiles.launches,
                 "flash_attention": flash_attention_fwd.launches}
     torch.cuda.synchronize()
@@ -832,10 +1041,10 @@ def main() -> int:
         name = device_phase()
         build_phase()
         mm_err = matmul_phase()
-        wino_err = winograd_phase()
+        wino_errs = winograd_phase()
         flash_err = flash_phase()
         launches, pps = main_path_phase()
-        kernels = timing_phase(launches, pps, mm_err, wino_err)
+        kernels = timing_phase(launches, pps, mm_err, wino_errs)
         step_phase()
         res, serve_launches = serve_phase()
         serve_sim_phase(res)

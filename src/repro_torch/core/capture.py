@@ -6,9 +6,9 @@ counterpart of ``repro.core.capture``.  Three steps:
 1. ``make_fx(fn, tracing_mode="fake")`` traces ``fn`` on fake copies of the
    example arguments: forward, ``torch.autograd.grad`` and the optimizer
    update all land in one aten graph, and each hand-kernel op
-   (``repro_torch::tiled_matmul``, ``repro_torch::winograd_tiles``,
-   ``repro_torch::flash_attention``) is one node in it, forward and
-   backward.
+   (``repro_torch::tiled_matmul``, ``repro_torch::conv3x3_winograd``,
+   ``repro_torch::winograd_tiles``, ``repro_torch::flash_attention``) is
+   one node in it, forward and backward.
 2. Every node is emitted as HLO text in the subset that
    :func:`~repro_torch.core.hlo_ir.parse_hlo_module` reads: one
    instruction per aten or custom-op node, ``parameter``s for the inputs,
@@ -20,8 +20,10 @@ Mapping notes.  Products become ``dot`` with their contracting (and batch)
 dimensions, which ``timing._dot_dims`` and ``SimModule.op_flops`` read.
 Convolutions become ``convolution`` with the filter operand re-declared in
 HWIO order (the FLOP count multiplies every filter dim but the last).  The
-Winograd op becomes an elementwise input transform, a ``dot`` over the 16
-transform positions and an elementwise output transform; the flash-attention
+Winograd tiles op becomes an elementwise input transform, a ``dot`` over the
+16 transform positions and an elementwise output transform; the fused
+Winograd conv op the reference's unfused program around those three (pads,
+tile gather, reassembly); the flash-attention
 op a q.k^T ``dot`` batched over the kv heads, an ``exponential`` and a p.v
 ``dot``.  Views become
 ``bitcast`` (free, as in eager PyTorch); materialized copies become
@@ -304,22 +306,58 @@ def _convolution_backward(em: _Emitter, node: torch.fx.Node) -> None:
     em.parts[node] = parts
 
 
-def _winograd(em: _Emitter, node: torch.fx.Node) -> None:
-    """Input transform, the 16-position contraction, output transform."""
-    tiles, u = node.args[:2]
-    tv, uv = em.val(tiles), em.val(u)
-    b, th, tw, _, _, cin = tv.shape
-    cout = uv.shape[-1]
+def _winograd_tiles(em: _Emitter, name: str, tiles: str, u: str,
+                    dims: Sequence[int], cout: int, out_type: str) -> str:
+    """Input transform, the 16-position contraction, output transform: the
+    tiles kernel's work as three instructions."""
+    b, th, tw, cin = dims
     n = b * th * tw
-    v = em.inst(f"{node.name}.v", _shape_type(torch.float32, (16, n, cin)),
-                "multiply", [em.names[tiles]])
-    u16 = em.inst(f"{node.name}.u", _shape_type(torch.float32, (16, cin, cout)),
-                  "bitcast", [em.names[u]])
-    m = em.inst(f"{node.name}.m", _shape_type(torch.float32, (16, n, cout)),
+    v = em.inst(f"{name}.v", _shape_type(torch.float32, (16, n, cin)),
+                "multiply", [tiles])
+    u16 = em.inst(f"{name}.u", _shape_type(torch.float32, (16, cin, cout)),
+                  "bitcast", [u])
+    m = em.inst(f"{name}.m", _shape_type(torch.float32, (16, n, cout)),
                 "dot", [v, u16],
                 "lhs_batch_dims={0}, lhs_contracting_dims={2}, "
                 "rhs_batch_dims={0}, rhs_contracting_dims={1}")
-    em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "multiply", [m])
+    return em.inst(name, out_type, "multiply", [m])
+
+
+def _winograd(em: _Emitter, node: torch.fx.Node) -> None:
+    tiles, u = node.args[:2]
+    b, th, tw, _, _, cin = em.val(tiles).shape
+    em.names[node] = _winograd_tiles(em, node.name, em.names[tiles], em.names[u],
+                                     (b, th, tw, cin), em.val(u).shape[-1],
+                                     hlo_type(em.val(node)))
+
+
+def _conv3x3_winograd(em: _Emitter, node: torch.fx.Node) -> None:
+    """The fused Winograd conv, emitted as the reference's unfused XLA
+    program computes it, so the simulator models the paper's nonfused
+    Winograd whatever the card runs: the SAME pad and the pad to whole
+    tiles, the tile gather (a copy of the stride-2 window view), the three
+    instructions of :func:`_winograd_tiles`, and the reassembly copy."""
+    x, u, padding = node.args[:3]
+    xv, uv = em.val(x), em.val(u)
+    b, H, W, cin = xv.shape
+    cout = uv.shape[-1]
+    dt = xv.dtype
+    src = em.names[x]
+    if padding == "SAME":
+        H, W = H + 2, W + 2
+        src = em.inst(f"{node.name}.pad", _shape_type(dt, (b, H, W, cin)), "pad", [src])
+    oh, ow = H - 2, W - 2
+    th, tw = (oh + 1) // 2, (ow + 1) // 2
+    src = em.inst(f"{node.name}.padr", _shape_type(dt, (b, 2 * th + 2, 2 * tw + 2, cin)),
+                  "pad", [src])
+    win = em.inst(f"{node.name}.win", _shape_type(dt, (b, th, tw, cin, 4, 4)),
+                  "bitcast", [src])
+    tiles = em.inst(f"{node.name}.tiles", _shape_type(dt, (b, th, tw, 4, 4, cin)),
+                    "copy", [win])
+    y = _winograd_tiles(em, f"{node.name}.t", tiles, em.names[u], (b, th, tw, cin),
+                        cout, _shape_type(dt, (b, th, tw, 2, 2, cout)))
+    y = em.inst(f"{node.name}.y", _shape_type(dt, (b, 2 * th, 2 * tw, cout)), "copy", [y])
+    em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "bitcast", [y])
 
 
 def _flash_attention(em: _Emitter, node: torch.fx.Node) -> None:
@@ -374,6 +412,7 @@ def _register_kernel_ops() -> None:
     import repro_torch.kernels.winograd.ops  # noqa: F401
     _SPECIAL[torch.ops.repro_torch.tiled_matmul.default] = _dot
     _SPECIAL[torch.ops.repro_torch.winograd_tiles.default] = _winograd
+    _SPECIAL[torch.ops.repro_torch.conv3x3_winograd.default] = _conv3x3_winograd
     _SPECIAL[torch.ops.repro_torch.flash_attention.default] = _flash_attention
 
 

@@ -16,12 +16,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro import config as RC
 from repro.core import Simulator as RefSimulator
 from repro.models import build_model
 from repro_torch import config as C
 from repro_torch.core import H100, Simulator, capture
+from repro_torch.kernels.winograd.ops import conv3x3_winograd_op, winograd_tiles_op
 from repro_torch.models.conv_algos import CONV_FNS
 from repro_torch.models.lenet import LeNet, sgd_step
 
@@ -151,3 +153,40 @@ def test_step_simulates_on_h100(algo):
     assert s["total_seconds"] > 0
     assert s["total_flops"] > 0
     assert s["launch_overhead_seconds"] > 0
+
+
+def _unfused_winograd(x, u, padding):
+    """The parent's conv3x3_winograd around the tiles op, written out:
+    F.pad, the stride-2 unfold and its copy, winograd_tiles_op, and the
+    reassembly."""
+    b, H, W, cin = x.shape
+    cout = u.shape[-1]
+    if padding == "SAME":
+        x = F.pad(x, (0, 0, 1, 1, 1, 1))
+        H, W = H + 2, W + 2
+    oh, ow = H - 2, W - 2
+    th, tw = (oh + 1) // 2, (ow + 1) // 2
+    x = F.pad(x, (0, 0, 0, 2 * tw + 2 - W, 0, 2 * th + 2 - H))
+    tiles = x.unfold(1, 4, 2).unfold(2, 4, 2).permute(0, 1, 2, 4, 5, 3).contiguous()
+    y = winograd_tiles_op(tiles, u)
+    out = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * th, 2 * tw, cout)
+    return out[:, :oh, :ow]
+
+
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+def test_fused_winograd_capture_prices_the_unfused_program(padding):
+    """At the section V case study the fused op's capture keeps the
+    analytic dot FLOPs and is priced within 1% of the unfused program's:
+    the simulator models the paper's nonfused Winograd either way."""
+    x = torch.zeros(64, 28, 28, 16)
+    u = torch.zeros(4, 4, 16, 32)
+    fused = capture(lambda a, b: conv3x3_winograd_op(a, b, padding), x, u)
+    unfused = capture(lambda a, b: _unfused_winograd(a, b, padding), x, u)
+    oh = 28 if padding == "SAME" else 26
+    tiles = 64 * ((oh + 1) // 2) ** 2
+    assert _mxu_flops(fused.module) == _mxu_flops(unfused.module) == 2 * 16 * tiles * 16 * 32
+    sim = Simulator(hw=H100)
+    t_fused = sim.performance(fused).summary()["total_seconds"]
+    t_unfused = sim.performance(unfused).summary()["total_seconds"]
+    assert abs(t_fused - t_unfused) <= 0.01 * t_unfused
+    assert fused.module.totals()["hbm_bytes"] == unfused.module.totals()["hbm_bytes"]

@@ -8,8 +8,9 @@ mode), is marked ``cuda``, and skips without a card.  The file imports no
 
 Tolerance: fp32 1e-4 and bf16 2e-2 of the output's largest magnitude (the
 kernel sums in another order than the library; over K = 100,352 terms the
-error grows with the output), Winograd 4e-4 against the direct conv (the
-transforms add roundings of their own), flash attention 2e-3 (fp32) and
+error grows with the output), Winograd 1e-4 (fp32) and 2e-2 (bf16) against
+its plain version and 4e-4 against the direct conv (the transforms add
+roundings of their own), flash attention 2e-3 (fp32) and
 2e-2 (bf16) of the output's largest magnitude, as the reference kernel tests
 hold the Pallas kernel.
 """
@@ -22,14 +23,19 @@ from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
 from repro_torch.kernels.tiled_matmul import BLOCK_CONFIGS, matmul, matmul_ref, tiled_matmul
 from repro_torch.kernels.tiled_matmul.kernel import split_k_plan
 from repro_torch.kernels.winograd import (conv3x3_ref, conv3x3_winograd,
-                                          winograd_tiles, winograd_tiles_ref)
+                                          conv3x3_winograd_ref, filter_transform,
+                                          winograd_conv, winograd_tiles,
+                                          winograd_tiles_ref)
+from repro_torch.kernels.winograd.kernel import kernel_smem_bytes, smem_bytes
 
 MM_SHAPES = [(128, 128, 128), (200, 300, 150), (64, 512, 32), (257, 129, 65),
              (100352, 25, 6), (25, 100352, 6),
              (100, 30, 50),     # K smaller than block_k
              (64, 5000, 32)]    # 16 K-splits of 5 slabs, the last one ragged
+# the reference's test shapes, the section V case study and a ResNet-50
+# conv2_x layer at batch 32
 WINO_CASES = [(1, 8, 4, 8), (2, 14, 8, 16), (1, 13, 3, 5), (1, 10, 64, 64),
-              (64, 28, 16, 32)]
+              (64, 28, 16, 32), (32, 56, 64, 64)]
 
 
 @pytest.fixture
@@ -137,34 +143,126 @@ def test_tiled_matmul_refuses_what_it_does_not_take(cuda):
         tiled_matmul(a, a.cpu())
 
 
+def _wino_tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hw,cin,cout", WINO_CASES)
 @pytest.mark.parametrize("padding", ["SAME", "VALID"])
-def test_winograd_kernel(cuda, b, hw, cin, cout, padding):
-    x = _randn(6, b, hw, hw, cin, device=cuda)
-    w = _randn(7, 3, 3, cin, cout, device=cuda)
-    before = winograd_tiles.launches
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_winograd_kernel(cuda, b, hw, cin, cout, padding, dtype):
+    """The fused conv against its plain version in its own dtype (and, in
+    fp32, against the direct conv), and the tiles entry against
+    winograd_tiles_ref."""
+    x = _randn(6, b, hw, hw, cin, device=cuda).to(dtype)
+    w = _randn(7, 3, 3, cin, cout, device=cuda).to(dtype)
+    before = (winograd_conv.launches, winograd_tiles.launches)
     out = conv3x3_winograd(x, w, padding)
     torch.cuda.synchronize()
-    assert winograd_tiles.launches == before + 1
-    err, scale = _err(out, conv3x3_ref(x, w, padding))
-    assert err <= 4e-4 * scale
-    tiles = _randn(8, b, 3, 4, 4, 4, cin, device=cuda)
-    u = _randn(9, 4, 4, cin, cout, device=cuda)
-    err, scale = _err(winograd_tiles(tiles, u), winograd_tiles_ref(tiles, u))
-    assert err <= 1e-4 * scale
+    assert (winograd_conv.launches, winograd_tiles.launches) == (before[0] + 1, before[1])
+    assert out.dtype == dtype
+    u = filter_transform(w, dtype)
+    ref = conv3x3_winograd_ref(x, u, padding)
+    assert out.shape == ref.shape
+    err, scale = _err(out, ref)
+    assert err <= _wino_tol(dtype) * scale
+    if dtype == torch.float32:
+        err, scale = _err(out, conv3x3_ref(x, w, padding))
+        assert err <= 4e-4 * scale
+    tiles = _randn(8, b, 3, 4, 4, 4, cin, device=cuda).to(dtype)
+    u = _randn(9, 4, 4, cin, cout, device=cuda).to(dtype)
+    y = winograd_tiles(tiles, u)
+    assert winograd_tiles.launches == before[1] + 1 and y.dtype == dtype
+    err, scale = _err(y, winograd_tiles_ref(tiles, u))
+    assert err <= _wino_tol(dtype) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["channel_slice", "transposed", "shifted"])
+def test_winograd_conv_takes_strided_x(cuda, dtype, view):
+    """x with a unit channel stride but other strides of its own: a slice
+    of wider pixels (16-byte rows), a spatial transpose, and a slice one
+    channel in (rows off a 16-byte boundary)."""
+    big = _randn(10, 2, 13, 15, 40, device=cuda).to(dtype)
+    x = {"channel_slice": big[..., :32], "transposed": big[..., :32].transpose(1, 2),
+         "shifted": big[..., 1:33]}[view]
+    assert not x.is_contiguous() and x.stride(3) == 1
+    u = filter_transform(_randn(11, 3, 3, 32, 24, device=cuda), dtype)
+    for padding in ("SAME", "VALID"):
+        out = winograd_conv(x, u, padding)
+        err, scale = _err(out, conv3x3_winograd_ref(x, u, padding))
+        assert err <= _wino_tol(dtype) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_winograd_repeats_bit_for_bit(cuda, dtype):
+    """No atomics and no sum across blocks."""
+    x = _randn(12, 8, 28, 28, 64, device=cuda).to(dtype)
+    u = filter_transform(_randn(13, 3, 3, 64, 64, device=cuda), dtype)
+    first = winograd_conv(x, u, "SAME")
+    tiles = _randn(14, 8, 14, 14, 4, 4, 64, device=cuda).to(dtype)
+    first_t = winograd_tiles(tiles, u)
+    for _ in range(3):
+        assert torch.equal(winograd_conv(x, u, "SAME"), first)
+        assert torch.equal(winograd_tiles(tiles, u), first_t)
+
+
+@pytest.mark.cuda
+def test_winograd_plan_matches_the_compiled_kernel(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        for image in (True, False):
+            assert kernel_smem_bytes(dtype, image) == smem_bytes(dtype, image)
+
+
+@pytest.mark.cuda
+def test_winograd_op_gradient(cuda):
+    """Forward through the fused kernel, backward recomputed through the
+    plain version: the gradients of the direct conv."""
+    x = _randn(15, 2, 9, 9, 3, device=cuda).requires_grad_()
+    w = _randn(16, 3, 3, 3, 5, device=cuda).requires_grad_()
+    g = _randn(17, 2, 9, 9, 5, device=cuda)
+    before = winograd_conv.launches
+    (conv3x3_winograd(x, w, "SAME") * g).sum().backward()
+    assert winograd_conv.launches == before + 1
+    xr, wr = (t.detach().clone().requires_grad_() for t in (x, w))
+    (conv3x3_ref(xr, wr, "SAME") * g).sum().backward()
+    for mine, ref in ((x.grad, xr.grad), (w.grad, wr.grad)):
+        err, scale = _err(mine, ref)
+        assert err <= 4e-4 * scale
 
 
 @pytest.mark.cuda
 def test_winograd_refuses_what_it_does_not_take(cuda):
     tiles = _randn(1, 1, 2, 2, 4, 4, 8, device=cuda)
     u = _randn(2, 4, 4, 8, 16, device=cuda)
+    x = _randn(3, 1, 6, 6, 8, device=cuda)
+    launches = (winograd_conv.launches, winograd_tiles.launches)
     with pytest.raises(TypeError):
         winograd_tiles(tiles.double(), u.double())
+    with pytest.raises(TypeError):
+        winograd_conv(x.double(), u.double())
+    with pytest.raises(TypeError):
+        winograd_conv(x.half(), u.half())
+    with pytest.raises(TypeError):
+        winograd_conv(x, u.bfloat16())
     with pytest.raises(ValueError):
         winograd_tiles(tiles, u[:, :, :4])
     with pytest.raises(ValueError):
+        winograd_conv(x, u[:, :, :4].contiguous())
+    with pytest.raises(ValueError):
         winograd_tiles(tiles.transpose(1, 2), u)
+    with pytest.raises(ValueError, match="channel stride"):
+        winograd_conv(x.transpose(2, 3), u[:, :, :6].contiguous())
+    with pytest.raises(ValueError):
+        winograd_conv(x, u.cpu())
+    with pytest.raises(ValueError):
+        winograd_conv(x, u, "FULL")
+    with pytest.raises(ValueError):
+        winograd_conv(x[:, :2], u, "VALID")
+    assert (winograd_conv.launches, winograd_tiles.launches) == launches
 
 
 # GQA groups 1, 2, 4 and 8 over head dims 32, 64 and 128; lengths on and off

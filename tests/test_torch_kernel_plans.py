@@ -1,6 +1,7 @@
 """The host-side plans of the port's CUDA kernels, on the CPU: the K-split
 count of ``tiled_matmul``, the TMA layout check of the bf16 flash kernel,
-and the build digest that names each library.  None of them needs a card."""
+the block geometry of the fused Winograd conv, and the build digest that
+names each library.  None of them needs a card."""
 import pytest
 import torch
 
@@ -8,8 +9,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import check_tma_layout
 from repro_torch.kernels.tiled_matmul.kernel import (BLOCK_CONFIGS, BLOCKS_PER_SM,
                                                      MIN_SLABS_PER_SPLIT, split_k_plan)
+from repro_torch.kernels.winograd.kernel import (COUT_PER_BLOCK, PATCHES, STAGES,
+                                                 TILES_PER_BLOCK, smem_bytes,
+                                                 winograd_plan)
 
 H100_SMS = 132
+H100_SMEM_PER_SM = 233472   # 228 KB of shared memory an SM
 
 # every product of one LeNet-full training step (batch 128): (label, M, K, N)
 LENET_STEP = [("fwd0", 100352, 25, 6), ("fwd1", 12800, 150, 16), ("fwd2", 128, 400, 120),
@@ -135,3 +140,79 @@ def test_build_digest_covers_included_headers(monkeypatch, tmp_path):
     assert build.lib_path("other") == other            # not included there
     (tmp_path / "kern.cu").write_text('#include <cuda_runtime.h>\n#include "inner.cuh"\n// x\n')
     assert build.lib_path("kern") != second
+
+
+# the section V case study, a ResNet-50 conv2_x layer at batch 32, the
+# reference's ragged 13x13 test with cin 3, and the other reference shapes
+WINO_PLAN_CASES = [(64, 28, 28, 16, 32), (32, 56, 56, 64, 64), (1, 13, 13, 3, 5),
+                   (1, 8, 8, 4, 8), (2, 14, 14, 8, 16), (1, 10, 10, 64, 64)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", WINO_PLAN_CASES)
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+def test_winograd_plan_covers_every_tile_once(b, h, w, cin, cout, padding):
+    plan = winograd_plan(b, h, w, cin, cout, padding)
+    pad = 1 if padding == "SAME" else 0
+    assert (plan.oh, plan.ow) == (h + 2 * pad - 2, w + 2 * pad - 2)
+    th, tw = plan.tiles
+    assert (th, tw) == ((plan.oh + 1) // 2, (plan.ow + 1) // 2)
+    r, c = plan.patch
+    assert plan.patch in PATCHES and plan.tiles_per_block == r * c == TILES_PER_BLOCK
+    assert plan.halo == (2 * r + 2, 2 * c + 2)
+    assert plan.stages == STAGES >= 2
+    assert plan.cout_blocks * COUT_PER_BLOCK >= cout > (plan.cout_blocks - 1) * COUT_PER_BLOCK
+    seen = {}
+    for i in range(plan.grid):
+        img, ti0, tj0, co0, r0, c0 = plan.block(i)
+        assert (r0, c0) == (2 * ti0 - pad, 2 * tj0 - pad)
+        for ti in range(ti0, ti0 + r):
+            for tj in range(tj0, tj0 + c):
+                if ti < th and tj < tw:
+                    key = (img, ti, tj, co0)
+                    assert key not in seen
+                    seen[key] = i
+    assert len(seen) == b * th * tw * plan.cout_blocks
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", WINO_PLAN_CASES)
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+def test_winograd_halo_is_exactly_what_the_tiles_read(b, h, w, cin, cout, padding):
+    """A block's halo box is the union of its tiles' 4x4 windows (tile (i, j)
+    reads rows 2i - pad .. 2i - pad + 3 of the image); the windows of the
+    tiles that hold outputs lie inside it."""
+    plan = winograd_plan(b, h, w, cin, cout, padding)
+    r, c = plan.patch
+    for i in range(0, plan.grid, plan.cout_blocks):
+        _, ti0, tj0, _, r0, c0 = plan.block(i)
+        rows = {2 * ti - plan.pad + k for ti in range(ti0, ti0 + r) for k in range(4)}
+        cols = {2 * tj - plan.pad + k for tj in range(tj0, tj0 + c) for k in range(4)}
+        assert rows == set(range(r0, r0 + plan.halo[0]))
+        assert cols == set(range(c0, c0 + plan.halo[1]))
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,padding,patch,grid", [
+    (64, 28, 28, 16, 32, "SAME", (2, 16), 448),     # 14x14 tiles: 2 of 16 columns idle
+    (32, 56, 56, 64, 64, "SAME", (4, 8), 1792),     # 28x28 tiles: the 10x18 box
+    (1, 13, 13, 3, 5, "SAME", (4, 8), 2),           # 7x7 tiles
+    (1, 13, 13, 3, 5, "VALID", (4, 8), 2),          # 6x6 tiles
+])
+def test_winograd_plan_picks_the_patch_with_least_waste(b, h, w, cin, cout, padding,
+                                                         patch, grid):
+    plan = winograd_plan(b, h, w, cin, cout, padding)
+    assert plan.patch == patch and plan.grid == grid
+
+
+def test_winograd_plan_shared_memory():
+    """Two blocks an SM in image mode (each block also reserves 1 KB)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = winograd_plan(64, 28, 28, 16, 32, "SAME", dtype)
+        assert plan.smem_bytes == smem_bytes(dtype, image=True)
+        assert 2 * (plan.smem_bytes + 1024) <= H100_SMEM_PER_SM
+    assert smem_bytes(torch.float32) == 85120 and smem_bytes(torch.bfloat16) == 109696
+
+
+@pytest.mark.parametrize("shape,padding", [((1, 2, 9, 3), "VALID"), ((1, 9, 2, 3), "VALID"),
+                                           ((1, 4, 4, 3), "FULL")])
+def test_winograd_plan_refuses_what_has_no_output(shape, padding):
+    with pytest.raises(ValueError):
+        winograd_plan(*shape, 5, padding)

@@ -18,7 +18,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import use_kernel
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.tiled_matmul import tiled_matmul
-from repro_torch.kernels.winograd import winograd_tiles
+from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
 from repro_torch.launch import serve
 from repro_torch.models.lenet import LeNet
 from repro_torch.models.transformer import DecoderLM
@@ -113,10 +113,12 @@ def test_dispatch_is_the_device_and_nothing_else():
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     a = torch.zeros(4, 4)
-    kernels = (tiled_matmul, winograd_tiles, flash_attention_fwd)
+    kernels = (tiled_matmul, winograd_conv, winograd_tiles, flash_attention_fwd)
     before = [k.launches for k in kernels]
     with pytest.raises(ValueError, match="CUDA"):
         tiled_matmul(a, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        winograd_conv(torch.zeros(1, 4, 4, 2), torch.zeros(4, 4, 2, 3))
     with pytest.raises(ValueError, match="CUDA"):
         winograd_tiles(torch.zeros(1, 1, 1, 4, 4, 2), torch.zeros(4, 4, 2, 3))
     q = torch.zeros(1, 2, 8, 32)
