@@ -8,9 +8,11 @@ each against its plain PyTorch version on the card, then drives the port's
 two paths, each with every kernel's launch count set to 0 just before and
 read just after:
 
-* LeNet — ``repro_torch.lenet_repro.run``: train LeNet (full width, batch
-  128, 60 SGD steps), capture and simulate one step on the ``h100`` spec,
-  and the section V conv-algorithm loop;
+* LeNet — ``repro_torch.lenet_repro.run``, the paper's experiments: train
+  LeNet (full width, batch 128, 60 SGD steps), capture and simulate one
+  step on the ``h100`` spec and correlate it per op class against the
+  card's own kernel times for the captured program, the power model, the
+  section V conv-algorithm loop, the phase analysis and the memory model;
 * serving — ``repro_torch.launch.serve.run``: llama3-8b at its full config
   (32 layers, bf16, random weights from seed 0) serves batch 4 x 2048-token
   prompts for 16 new tokens, prefill attention in the flash kernel; then the
@@ -18,10 +20,17 @@ read just after:
   prefill against the plain decode attention at full width, and the
   prefill and decode steps are captured and simulated on ``h100``.
 
-Then it times each kernel, its plain version and the one PyTorch library
-call that computes the same function, beside the card's bound for the same
-work, and the steady-state LeNet training step with its device time by
-kernel.
+Then it times each kernel (fp32, bf16 and fp16), its plain version and the
+one PyTorch library call that computes the same function, beside the card's
+bound for the same work, and the steady-state LeNet training step with its
+device time by kernel.  The last three phases read the paper's analysis
+path on the card: the correlation table (Fig. 6/7) of the LeNet step and of
+the full-width prefill against the card's kernel times (phase 12),
+``nvidia-smi``'s power draw idle and under both workloads beside the power
+model (phase 13, Fig. 8), and the phase analysis, the vision view, the
+differential debugger (clean and with a planted bf16 rounding) and
+``python -m repro_torch.analysis`` (phase 14).  Phases 12 and 13 also write
+``chiprun_out/chip_smoke_analysis.json``.
 
 Exits non-zero on any failure, without a result line; in particular when no
 CUDA device is available or when ``src/repro_torch`` is not beside it.  The
@@ -55,6 +64,11 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 16
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
+# fp16: a little over one fp16 ulp (2**-10 = 9.77e-4) of the output's scale.
+# A kernel that accumulates in fp32 and rounds once differs from the plain
+# version by at most one ulp; the plain version on operands rounded to bf16
+# misses by 1.5e-3 to 4e-3 at the main path's shapes, and is held to fail it
+F16_TOL = 1.2e-3
 
 
 class SmokeFailure(Exception):
@@ -70,9 +84,16 @@ def phase(title: str) -> None:
     print(f"== {title} ==", flush=True)
 
 
+def _bf16(t):
+    """``t`` rounded to bf16 and back: the control that the fp16 limit
+    must reject."""
+    return t.bfloat16().to(t.dtype)
+
+
 def device_phase():
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    idle = _power_draw(None, 3.0)      # before this process runs anything
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -82,9 +103,11 @@ def device_phase():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
           f"count {torch.cuda.device_count()}")
     print(smi.stdout.strip().splitlines()[0])
+    print(f"  power.draw before any work: {len(idle)} samples, mean "
+          f"{sum(idle) / len(idle):.1f} W (min {min(idle):.1f}, max {max(idle):.1f})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return name
+    return name, idle
 
 
 def build_phase():
@@ -99,10 +122,13 @@ def build_phase():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     # the redesigned kernels' machine code: wgmma (HGMMA) and TMA loads
-    # (UTMALDG) in every bf16 flash instance, cp.async (LDGSTS) in tiled_matmul
-    counts = sass_counts("flash_attention", "attn_bf16_kernel", ("HGMMA", "UTMALDG"))
+    # (UTMALDG) in every bf16 and fp16 flash instance, cp.async (LDGSTS) in
+    # tiled_matmul
+    counts = sass_counts("flash_attention", "attn_wgmma_kernel", ("HGMMA", "UTMALDG"))
+    check(len(counts) == 6, f"expected 6 wgmma flash instances (bf16 and fp16 at d 32, "
+                            f"64, 128), found {len(counts)}")
     check(all(c[op] > 0 for c in counts.values() for op in c),
-          "a bf16 flash instance has no HGMMA or no UTMALDG")
+          "a 16-bit flash instance has no HGMMA or no UTMALDG")
     sass_counts("tiled_matmul", "", ("LDGSTS",))
 
 
@@ -191,27 +217,38 @@ def matmul_phase():
     cases.append(("ragged 257x129x65 f32", a, b, F32_TOL, None))
     cases.append(("ragged 257x129x65 bf16", a.bfloat16(), b.bfloat16(),
                   BF16_TOL, None))
+    cases.append(("ragged 257x129x65 fp16", a.half(), b.half(), F16_TOL, None))
     a = torch.randn(256, 256, generator=gen, device="cuda")
     b = torch.randn(256, 256, generator=gen, device="cuda")
     for cfg in BLOCK_CONFIGS:
         cases.append((f"sweep 256^3 block {cfg}", a, b, F32_TOL, cfg))
     # split-K: the weight gradients in bf16, and a K (5000) that is not a
     # multiple of splits * block_k (16 splits of 5 slabs of 64, the last ragged)
+    # every LeNet product in fp16 too
     for label, a, b in lenet_step_products(gen, "cuda"):
+        cases.append((f"fp16 {label} {tuple(a.shape)}@{tuple(b.shape)}", a.half(), b.half(),
+                      F16_TOL, None))
         if label in ("dw0", "dw1"):
             cases.append((f"split-K {label} bf16", a.bfloat16(), b.bfloat16(), BF16_TOL, None))
     a = torch.randn(64, 5000, generator=gen, device="cuda")
     b = torch.randn(5000, 32, generator=gen, device="cuda")
     cases.append(("ragged split-K 64x5000x32 f32", a, b, F32_TOL, None))
     cases.append(("ragged split-K 64x5000x32 bf16", a.bfloat16(), b.bfloat16(), BF16_TOL, None))
+    cases.append(("ragged split-K 64x5000x32 fp16", a.half(), b.half(), F16_TOL, None))
     for label, a, b, tol, cfg in cases:
         kw = {} if cfg is None else dict(block_m=cfg[0], block_n=cfg[1],
                                          block_k=cfg[2])
         out = tiled_matmul(a, b, **kw)
         torch.cuda.synchronize()
         err, ok = _close(out, matmul_ref(a, b), tol)
-        print(f"  {label}: max_abs_err {err:.3e} (tol {tol})")
-        check(ok, f"tiled_matmul disagrees with matmul_ref on {label}")
+        line = f"  {label}: max_abs_err {err:.3e} (tol {tol})"
+        if label.startswith("fp16 "):       # a LeNet product: the bf16 control
+            err_b, ok_b = _close(matmul_ref(_bf16(a), _bf16(b)), matmul_ref(a, b), tol)
+            check(not ok_b, f"the fp16 limit passes {label} on operands rounded to "
+                            f"bf16 (max_abs_err {err_b})")
+            line += f"; on operands rounded to bf16 {err_b:.3e}, over the limit"
+        print(line)
+        check(ok and out.dtype == a.dtype, f"tiled_matmul disagrees with matmul_ref on {label}")
         if label.startswith("lenet"):
             worst = max(worst, err)
         if label.startswith("lenet dw0") or label.startswith("lenet dw1"):
@@ -224,9 +261,9 @@ def matmul_phase():
 
 def winograd_phase():
     """The fused Winograd conv against the direct conv and its plain
-    version, the tiles entry against winograd_tiles_ref, both in bf16, the
-    bits of a second call, the compiled kernel's shared memory against the
-    plan's, and the tensor-core products (HMMA) and cp.async copies
+    version, the tiles entry against winograd_tiles_ref, both in bf16 and
+    fp16, the bits of a second call, the compiled kernel's shared memory
+    against the plan's, and the tensor-core products (HMMA) and cp.async copies
     (LDGSTS) in its machine code.  Returns the fp32 errors at the case
     study: (fused conv vs its plain version, tiles vs winograd_tiles_ref)."""
     import torch
@@ -239,7 +276,7 @@ def winograd_phase():
     phase("4. winograd_conv and winograd_tiles against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
-    bf16 = torch.bfloat16
+    bf16, f16 = torch.bfloat16, torch.float16
     cases = [(CASE_X, CASE_W), ((8, 28, 28, 64), (3, 3, 64, 64)),
              ((1, 13, 13, 3), (3, 3, 3, 5))]
     for xs, ws in cases:
@@ -254,15 +291,27 @@ def winograd_phase():
             # F(2x2,3x3) amplifies fp32 rounding by the transforms' ~4x growth
             err_c, ok_c = _close(y, conv3x3_ref(x, w, pad), 4 * F32_TOL)
             err_p, ok_p = _close(y, conv3x3_winograd_ref(x, u, pad), F32_TOL)
-            yb = conv3x3_winograd(x.to(bf16), w.to(bf16), pad)
-            err_b, ok_b = _close(yb, conv3x3_winograd_ref(x.to(bf16), filter_transform(
-                w.to(bf16), bf16), pad), BF16_TOL)
+            half = {}
+            for dt, tol in ((bf16, BF16_TOL), (f16, F16_TOL)):
+                xh, wh = x.to(dt), w.to(dt)
+                yh = conv3x3_winograd(xh, wh, pad)
+                ref_h = conv3x3_winograd_ref(xh, filter_transform(wh, dt), pad)
+                err_h, ok_h = _close(yh, ref_h, tol)
+                check(yh.dtype == dt and ok_h, f"{dt} winograd_conv disagrees at {xs} {pad}")
+                half[dt] = err_h
+            if xs == CASE_X:          # the bf16 control of the fp16 limit (dt is fp16)
+                err_b, ok_b = _close(conv3x3_winograd_ref(_bf16(xh), filter_transform(
+                    _bf16(wh), f16), pad), ref_h, F16_TOL)
+                check(not ok_b, f"the fp16 limit passes the case study on operands "
+                                f"rounded to bf16 (max_abs_err {err_b})")
+                print(f"  conv x {xs} {pad} fp16 on operands rounded to bf16: "
+                      f"max_abs_err {err_b:.3e}, over the limit")
             print(f"  conv x {xs} w {ws} {pad}: vs conv3x3_ref {err_c:.3e} (tol "
                   f"{4 * F32_TOL}), vs conv3x3_winograd_ref {err_p:.3e} (tol {F32_TOL}); "
-                  f"bf16 {err_b:.3e} (tol {BF16_TOL})")
+                  f"bf16 {half[bf16]:.3e} (tol {BF16_TOL}), fp16 {half[f16]:.3e} "
+                  f"(tol {F16_TOL})")
             check(ok_c, f"winograd_conv disagrees with conv3x3_ref at {xs} {pad}")
             check(ok_p, f"winograd_conv disagrees with conv3x3_winograd_ref at {xs} {pad}")
-            check(yb.dtype == bf16 and ok_b, f"bf16 winograd_conv disagrees at {xs} {pad}")
             if (xs, pad) == (CASE_X, "SAME"):
                 errs["conv"] = err_p
         # the tiles entry on the tiles this conv's SAME tiling gives
@@ -270,12 +319,16 @@ def winograd_phase():
                             generator=gen, device="cuda")
         yt = winograd_tiles(tiles, u)
         err_t, ok_t = _close(yt, winograd_tiles_ref(tiles, u), F32_TOL)
-        tb, ub = tiles.to(bf16), u.to(bf16)
-        err_tb, ok_tb = _close(winograd_tiles(tb, ub), winograd_tiles_ref(tb, ub), BF16_TOL)
+        half = {}
+        for dt, tol in ((bf16, BF16_TOL), (f16, F16_TOL)):
+            th, uh = tiles.to(dt), u.to(dt)
+            err_th, ok_th = _close(winograd_tiles(th, uh), winograd_tiles_ref(th, uh), tol)
+            check(ok_th, f"{dt} winograd_tiles disagrees at {tuple(tiles.shape)}")
+            half[dt] = err_th
         print(f"  tiles {tuple(tiles.shape)} u {tuple(u.shape)}: max_abs_err {err_t:.3e} "
-              f"(tol {F32_TOL}); bf16 {err_tb:.3e} (tol {BF16_TOL})")
+              f"(tol {F32_TOL}); bf16 {half[bf16]:.3e} (tol {BF16_TOL}), fp16 "
+              f"{half[f16]:.3e} (tol {F16_TOL})")
         check(ok_t, f"winograd_tiles disagrees with winograd_tiles_ref at {tuple(tiles.shape)}")
-        check(ok_tb, f"bf16 winograd_tiles disagrees at {tuple(tiles.shape)}")
         if xs == CASE_X:
             errs["tiles"] = err_t
             again = (winograd_conv(x, u, "SAME"), winograd_tiles(tiles, u))
@@ -290,7 +343,7 @@ def winograd_phase():
     views = (("channel slice, transposed", lambda t: t[..., :32].transpose(1, 2)),
              ("one channel in", lambda t: t[..., 1:33]))
     for label, view in views:
-        for dtype, tol in ((torch.float32, F32_TOL), (bf16, BF16_TOL)):
+        for dtype, tol in ((torch.float32, F32_TOL), (bf16, BF16_TOL), (f16, F16_TOL)):
             x, u = view(big.to(dtype)), filter_transform(w, dtype)
             check(x.stride(3) == 1 and not x.is_contiguous(), "strided x is contiguous")
             for pad in ("SAME", "VALID"):
@@ -298,13 +351,15 @@ def winograd_phase():
                                  conv3x3_winograd_ref(x, u, pad), tol)
                 check(ok, f"winograd_conv on a strided x ({label}, {dtype}, {pad}): "
                           f"max_abs_err {err}")
-        print(f"  strided x {tuple(x.shape)} strides {x.stride()} ({label}): fp32 and "
-              f"bf16, SAME and VALID agree")
-    for dtype in (torch.float32, bf16):
+        print(f"  strided x {tuple(x.shape)} strides {x.stride()} ({label}): fp32, "
+              f"bf16 and fp16, SAME and VALID agree")
+    for dtype in (torch.float32, bf16, f16):
         for image in (True, False):
             check(kernel_smem_bytes(dtype, image) == smem_bytes(dtype, image),
                   f"the plan's shared memory differs from the kernel's ({dtype}, {image})")
     counts = sass_counts("winograd", "wino_kernel", ("HMMA", "LDGSTS"))
+    check(len(counts) == 6, f"expected 6 winograd instances (fp32, bf16 and fp16, image "
+                            f"and tiles), found {len(counts)}")
     check(all(c["HMMA"] > 0 for c in counts.values()), "a winograd instance has no HMMA")
     return errs
 
@@ -319,10 +374,16 @@ def flash_phase():
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_fwd
     phase("5. flash_attention against attention_ref")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    bf16 = torch.bfloat16
+    bf16, f16 = torch.bfloat16, torch.float16
     cases = [  # label, (b, h, kv, s, t, d), dtype, causal, window, softcap
         ("slice b4 h32 kv8 s=t=2048 d128 bf16 causal", (4, 32, 8, 2048, 2048, 128),
          bf16, True, 0, 0.0),
+        ("slice b4 h32 kv8 s=t=2048 d128 fp16 causal", (4, 32, 8, 2048, 2048, 128),
+         f16, True, 0, 0.0),
+        ("ragged s=t=2000 d128 fp16 causal", (1, 32, 8, 2000, 2000, 128),
+         f16, True, 0, 0.0),
+        ("window 64 softcap 30 d64 fp16", (2, 8, 2, 500, 500, 64), f16, True, 64, 30.0),
+        ("non-causal s=200 t=333 d32 fp16", (2, 4, 4, 200, 333, 32), f16, False, 0, 0.0),
         ("ragged s=t=2000 d128 bf16 causal", (1, 32, 8, 2000, 2000, 128),
          bf16, True, 0, 0.0),
         ("ragged s=t=2000 d128 f32 causal", (1, 8, 2, 2000, 2000, 128),
@@ -343,12 +404,21 @@ def flash_phase():
         kw = dict(causal=causal, window=window, softcap=softcap)
         out = flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
-        tol = BF16_TOL if dtype == bf16 else 2e-3
-        err, worst, ok = _close_rows(out, attention_ref(q, k, v, **kw), tol)
+        tol = {bf16: BF16_TOL, f16: F16_TOL}.get(dtype, 2e-3)
+        ref = attention_ref(q, k, v, **kw)
+        err, worst, ok = _close_rows(out, ref, tol)
         print(f"  {label}: max_abs_err {err:.3e}, worst row {worst:.3e} of its "
               f"max |ref| (tol {tol})")
-        check(ok, f"flash_attention disagrees with attention_ref on {label}")
-        if label.startswith("slice"):
+        if label.startswith("slice") and dtype == f16:   # the bf16 control
+            _, worst_b, ok_b = _close_rows(attention_ref(_bf16(q), _bf16(k), _bf16(v), **kw),
+                                           ref, tol)
+            check(not ok_b, f"the fp16 limit passes {label} on q, k, v rounded to bf16 "
+                            f"(worst row {worst_b})")
+            print(f"  {label} on q, k, v rounded to bf16: worst row {worst_b:.3e}, "
+                  f"over the limit")
+        check(ok and out.dtype == dtype,
+              f"flash_attention disagrees with attention_ref on {label}")
+        if label.startswith("slice") and dtype == bf16:
             slice_err = err
     return slice_err
 
@@ -358,7 +428,8 @@ def main_path_phase():
     from repro_torch import lenet_repro
     from repro_torch.kernels.tiled_matmul import tiled_matmul
     from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
-    phase("6. main path: train LeNet, capture + simulate, SS V loop")
+    phase("6. main path: the paper's LeNet experiments (train; capture, simulate and "
+          "correlate; power; SS V loop; phases; memory)")
     for kern in (tiled_matmul, winograd_conv, winograd_tiles):
         kern.launches = 0
     res = lenet_repro.run(device="cuda", hw="h100")
@@ -387,7 +458,7 @@ def main_path_phase():
         check(r["shape"] == (64, 28, 28, 32), f"{algo}: shape {r['shape']}")
         check(r["max_abs_err"] <= tol,
               f"{algo} conv max_abs_err {r['max_abs_err']} > {tol}")
-    return launches, products_per_step
+    return launches, products_per_step, res
 
 
 def _time_ms(fn, reps=20, warmup=3):
@@ -516,6 +587,12 @@ def timing_phase(launches, products_per_step, mm_err, wino_errs):
               f"{t_k:.4f} ms ({_fmt_ms(t_d)} on the device), plain {t_p:.4f} ms, "
               f"torch.matmul {t_l:.4f} ms ({_fmt_ms(t_ld)} on the device), bound "
               f"{bound * 1e3:.2f} us ({by})")
+    # the same 14 products in fp16 (the kernel converts to fp32 on load)
+    f16_ms = _total([_device_ms(lambda: tiled_matmul(a16, b16)) for a16, b16 in
+                     ((a.half(), b.half()) for _, a, b in prods)])
+    f16_bound, f16_by = _bound(flops, nbytes / 2, PEAK_F32_FLOPS)
+    print(f"  tiled_matmul fp16, the {len(prods)} products: {_fmt_ms(f16_ms)} on the device, "
+          f"bound {f16_bound * 1e3:.2f} us ({f16_by})")
     mm_bound, mm_by = _bound(flops, nbytes, PEAK_F32_FLOPS)
     mm = {"name": "tiled_matmul", "route": "cuda",
           "source": "src/repro_torch/csrc/tiled_matmul.cu",
@@ -527,7 +604,8 @@ def timing_phase(launches, products_per_step, mm_err, wino_errs):
           "bound_ms": mm_bound, "bound_by": mm_by,
           "library_ms": sum(r["library_ms"] for r in rows),
           "unit": f"the {products_per_step} products of one LeNet-full "
-                  "training step (batch 128)"}
+                  "training step (batch 128)",
+          "fp16": {"device_ms": f16_ms, "bound_ms": f16_bound, "bound_by": f16_by}}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -625,6 +703,11 @@ def _winograd_timing(gen, launches, errs):
                      "library_device_ms": _device_ms(lambda: F.conv2d(xbl, wbl, padding=1))}
         r["bf16"]["bound_ms"], r["bf16"]["bound_by"] = _bound(
             flops, 2.0 * (x.numel() + u.numel() + n_out), PEAK_BF16_FLOPS)
+        xh, uh = x.half(), filter_transform(w, torch.float16)
+        xhl, whl = xcl.half(), wcl.half()
+        r["fp16"] = {"device_ms": _device_ms(lambda: winograd_conv(xh, uh, "SAME")),
+                     "library_device_ms": _device_ms(lambda: F.conv2d(xhl, whl, padding=1)),
+                     "bound_ms": r["bf16"]["bound_ms"], "bound_by": r["bf16"]["bound_by"]}
         print(f"  winograd_conv x {xs} w {ws} SAME ({plan.grid} blocks of "
               f"{plan.patch[0]}x{plan.patch[1]} tiles): warm {r['ms']:.4f} ms "
               f"({_fmt_ms(r['device_ms'])} on the device), L2 flushed {r['cold_ms']:.4f} ms "
@@ -646,6 +729,8 @@ def _winograd_timing(gen, launches, errs):
         print(f"    bf16: winograd_conv {_fmt_ms(r['bf16']['device_ms'])} on the device, "
               f"F.conv2d channels_last {_fmt_ms(r['bf16']['library_device_ms'])}; bound "
               f"{r['bf16']['bound_ms'] * 1e3:.2f} us ({r['bf16']['bound_by']})")
+        print(f"    fp16: winograd_conv {_fmt_ms(r['fp16']['device_ms'])} on the device, "
+              f"F.conv2d channels_last {_fmt_ms(r['fp16']['library_device_ms'])}; same bound")
         out[key] = r
     case = out["case"]
     unit = "the SS V case study, x (64,28,28,16) w (3,3,16,32) SAME"
@@ -694,13 +779,14 @@ def step_phase():
 
     step_ms = _time_ms(one_step, reps=10, warmup=3)
     print(f"  step {step_ms:.3f} ms (CUDA events, mean of 10)")
-    _profile("step", one_step, 5)
-    return step_ms
+    busy_ms = _profile("step", one_step, 5)
+    return {"step_ms": step_ms, "busy_ms": busy_ms, "one_step": one_step}
 
 
 def _profile(unit, fn, n, top=10):
     """Device time by kernel over ``n`` calls of ``fn`` under
-    ``torch.profiler``, and the device's busy share of the host window."""
+    ``torch.profiler``, and the device's busy share of the host window.
+    Returns the device's busy ms a call (None if nothing was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -718,7 +804,7 @@ def _profile(unit, fn, n, top=10):
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
         print("  torch.profiler recorded no device time")
-        return
+        return None
     busy_us = sum(r[0] for r in rows)
     print(f"  profiler: device busy {busy_us / n / 1e3:.3f} ms a {unit}, "
           f"{100 * busy_us / window_us:.1f}% of the {window_us / n / 1e3:.3f} ms "
@@ -726,6 +812,7 @@ def _profile(unit, fn, n, top=10):
           f"{unit} ({len(rows)} distinct)")
     for t, key, count in rows[:top]:
         print(f"    {t / n / 1e3:8.3f} ms/{unit}  {count // n:4d} calls/{unit}  {key[:90]}")
+    return busy_us / n / 1e3
 
 
 def _upcast(tree):
@@ -860,8 +947,8 @@ def serve_phase():
 
     # where a warm prefill and a warm decode step spend the device's time
     prompts = res["prompts"]
-    _profile("prefill", lambda: prefill_step(model, params, {"tokens": prompts}), 1,
-             top=6)
+    warm["busy_ms"] = _profile("prefill", lambda: prefill_step(model, params,
+                                                              {"tokens": prompts}), 1, top=6)
     _, cache = prefill_step(model, params, {"tokens": prompts})
     state = {"cache": Server._grow_cache(cache, 4)}
     del cache
@@ -916,6 +1003,7 @@ def serve_phase():
           f"the two bf16 prefills' logits differ by {rel_paths:.3e}")
     check(rel_f32 <= BF16_TOL,
           f"fp32 decode vs prefill relative error {rel_f32} > {BF16_TOL}")
+    res["warm"] = warm
     return res, launches
 
 
@@ -969,6 +1057,7 @@ def serve_sim_phase(res):
         secs = rep.summary()["total_seconds"]
         check(secs > 0 and math.isfinite(secs), f"bad simulated {kind} time {secs}")
         out[kind] = secs
+        out[f"{kind}_capture"], out[f"{kind}_report"] = cap, rep
     print(f"  modeled decode step: {out['decode'] * 1e6:.1f} us "
           f"({b / out['decode']:.0f} tok/s on one chip); modeled prefill "
           f"{out['prefill'] * 1e3:.2f} ms")
@@ -1003,6 +1092,15 @@ def flash_timing_phase(launches, flash_err):
           f"the device), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms ({_fmt_ms(t_ld)} on the "
           f"device), bound {bound * 1e3:.2f} us ({by})")
 
+    # fp16 on the same wgmma kernel
+    qh, kh, vh = (x.half() for x in (q, k, v))
+    t16_d = _device_ms(lambda: flash_attention_fwd(qh, kh, vh, causal=True))
+    t16_ld = _device_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
+    print(f"  flash_attention fp16, same shape: {_fmt_ms(t16_d)} on the device, SDPA "
+          f"{_fmt_ms(t16_ld)} on the device; same bound")
+    del qh, kh, vh
+
     # the fp32 instance, left on the CUDA cores, at a quarter of the batch
     b32 = 1
     q32, k32, v32 = (x[:b32].float() for x in (q, k, v))
@@ -1025,9 +1123,259 @@ def flash_timing_phase(launches, flash_err):
             "bound_by": by, "library_ms": t_l, "library_device_ms": t_ld,
             "unit": f"one llama3-8b layer's prefill attention, b{b} h{h} kv{kv} "
                     f"s=t={s} d{d} bf16 causal",
+            "fp16": {"device_ms": t16_d, "library_device_ms": t16_ld,
+                     "bound_ms": bound, "bound_by": by},
             "fp32": {"ms": t32, "device_ms": t32_d, "library_ms": t32_l,
                      "bound_ms": b32_bound, "bound_by": b32_by,
                      "unit": f"b{b32} h{h} kv{kv} s=t={s} d{d} fp32 causal"}}
+
+
+def _graph_alone(cap, args, n):
+    """The captured graph called as it is (no interpreter, no node ranges),
+    profiled apart from ``card_reference`` as ``profile_runs`` profiles it:
+    the device's busy ms a run and its device work a run by name."""
+    from collections import Counter
+
+    import torch
+    from repro_torch.core.correlate import profile_runs
+
+    def run():
+        with torch.no_grad():
+            cap.graph(*args)
+
+    items, _ = profile_runs(run, n, cuda=True)
+    busy_ms = sum(it[1] for it in items) / n / 1e3
+    check(busy_ms > 0, "no device time in the captured graph's own profile")
+    return busy_ms, {k: v / n for k, v in Counter(it[2] for it in items).items()}
+
+
+def _check_card_reference(label, ref, cr, alone):
+    """Phase 12's checks on one ``card_reference``: every profiled kernel
+    under a node; the per-class sums within 1% of the profile's device total
+    (``profile_seconds``); the same device work, name by name, as the graph
+    called as it is in a profile of its own (``alone``, from
+    ``_graph_alone``); and every class with card time present in the
+    simulation.  The graph alone's busy time is printed beside the sums and
+    not held to them: a run with a range around every node leaves the card
+    idle between kernels and one without does not, and the card's times of
+    the same kernels differ between the two by up to 1.7% (the LeNet step)
+    and 5% (the prefill; PERF.md §6)."""
+    alone_ms, alone_counts = alone
+    check(ref.clock == "device", f"{label}: card_reference ran on the {ref.clock} clock")
+    per_class_ms = sum(ref.values()) * 1e3
+    profile_ms = ref.profile_seconds * 1e3
+    print(f"  {label}: {len(ref.node_seconds)} nodes timed over {ref.runs} runs, "
+          f"{sum(ref.counts.values()):.0f} device kernels a run; the per-class sum "
+          f"{per_class_ms:.4f} ms a run, the profile's device total {profile_ms:.4f} ms "
+          f"({(per_class_ms / profile_ms - 1) * 100:+.2f}%); the graph alone, profiled "
+          f"apart: {sum(alone_counts.values()):.0f} device kernels, {alone_ms:.4f} ms "
+          f"({(per_class_ms / alone_ms - 1) * 100:+.2f}%)")
+    check(not ref.unattributed, f"{label}: device work under no captured node: "
+                                f"{ref.unattributed[:8]}")
+    check(abs(per_class_ms - profile_ms) <= 0.01 * profile_ms,
+          f"{label}: per-class sum {per_class_ms} ms differs from the profile's device "
+          f"total {profile_ms} ms by more than 1%")
+    differ = sorted((k, ref.counts.get(k, 0), alone_counts.get(k, 0))
+                    for k in set(ref.counts) | set(alone_counts)
+                    if ref.counts.get(k, 0) != alone_counts.get(k, 0))
+    check(not differ, f"{label}: device work a run (name, under the node ranges, the "
+                      f"graph alone) differs: {differ[:8]}")
+    simulated = {r.kernel for r in cr.rows if r.sim_seconds > 0}
+    missing = sorted(c for c, t in ref.items() if t > 0 and c not in simulated)
+    check(not missing, f"{label}: op classes with card time but no simulated time: {missing}")
+
+
+def correlation_phase(lenet, step, serve_res, serve_sim):
+    """Fig. 6/7 on the card: the simulator's time per op class against the
+    card's own kernel times for the same captured program, for the LeNet-full
+    step (the main path's ``card_reference``, on the trained parameters) and
+    for the full-width llama3-8b prefill that phase 10 captured, on phase
+    9's weights and prompts."""
+    from repro_torch.core import H100, card_reference, correlate
+    phase("12. correlation on the card (Fig. 6/7)")
+    out = {"lenet": _correlation_lines(
+        f"lenet-full step b{lenet['step_args'][1].shape[0]} fp32", lenet["card_reference"],
+        lenet["correlation"], lenet["report"], step["step_ms"], step["busy_ms"],
+        _graph_alone(lenet["capture"], lenet["step_args"], 5))}
+    cap = serve_sim["prefill_capture"]
+    args = (serve_res["params"], {"tokens": serve_res["prompts"]})
+    t0 = time.perf_counter()
+    ref = card_reference(cap, *args, n=2)
+    secs = time.perf_counter() - t0
+    cr = correlate(cap, H100, ref)
+    warm = serve_res["warm"]
+    print(f"  ({SERVE_ARCH} prefill: card_reference took {secs:.1f}s)")
+    out["prefill"] = _correlation_lines(
+        f"{SERVE_ARCH} prefill b{SERVE_BATCH} s{SERVE_PROMPT} bf16", ref, cr,
+        serve_sim["prefill_report"], warm["prefill_ms"], warm["busy_ms"],
+        _graph_alone(cap, args, 2))
+    return out
+
+
+def _correlation_lines(label, ref, cr, rep, wall_ms, busy_ms, alone):
+    print(f"  -- {label} (h100 spec vs the card) --")
+    print("\n".join("  " + line for line in cr.table().splitlines()))
+    print(f"  overall discrepancy {cr.overall_discrepancy * 100:.1f}% (the paper: within "
+          f"30%), Pearson r {cr.correlation:.3f} over {len(cr.rows)} op classes")
+    sim_ms = rep.total_seconds * 1e3
+    print(f"  simulated step {sim_ms:.4f} ms; measured warm step {wall_ms:.4f} ms wall "
+          f"(CUDA events), {_fmt_ms(busy_ms)} device-busy (torch.profiler); the "
+          f"captured graph's kernels {ref.profile_seconds * 1e3:.4f} ms")
+    _check_card_reference(label, ref, cr, alone)
+    return {"classes": {r.kernel: [r.sim_seconds, r.ref_seconds] for r in cr.rows
+                        if r.sim_seconds > 0 or r.ref_seconds > 0},
+            "overall_discrepancy": cr.overall_discrepancy, "r": cr.correlation,
+            "sim_ms": sim_ms, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "card_ms": ref.profile_seconds * 1e3, "graph_ms": alone[0]}
+
+
+def _power_draw(work, seconds):
+    """``power.draw`` samples (W) that ``nvidia-smi`` takes every 100 ms
+    while ``work()`` is called in a loop for ``seconds`` (``None``: the
+    card is left idle).  The sampler is stopped before this returns."""
+    import torch
+    if work is not None:
+        torch.cuda.synchronize()
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.5)       # the sampler's start-up
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            if work is None:
+                time.sleep(0.05)
+            else:
+                work()
+        if work is not None:
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        try:
+            text = proc.communicate(timeout=10)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text = proc.communicate()[0]
+    samples = []
+    for line in text.splitlines():
+        try:
+            samples.append(float(line.strip()))
+        except ValueError:
+            pass
+    check(len(samples) >= 3, f"nvidia-smi gave {len(samples)} power samples")
+    return samples
+
+
+def power_phase(lenet, step, serve_res, serve_sim, idle_before):
+    """Fig. 8 against the card: ``power.draw`` sampled idle (``idle_before``:
+    phase 1's samples, before this process ran anything; then again with its
+    context live after the serving phases), during the LeNet training loop
+    and during repeated prefills, beside the power model's average watts for
+    that step on the ``h100`` spec."""
+    from repro_torch.core import H100, analyze_power
+    from repro_torch.runtime.steps import prefill_step
+    phase("13. power (Fig. 8): nvidia-smi power.draw beside analyze_power")
+    model, params, prompts = serve_res["model"], serve_res["params"], serve_res["prompts"]
+    runs = (("idle after the serving phases", None, None),
+            ("LeNet-full training loop", step["one_step"], lenet["report"]),
+            (f"{SERVE_ARCH} prefill loop", lambda: prefill_step(model, params,
+                                                               {"tokens": prompts}),
+             serve_sim["prefill_report"]))
+    out = {"idle before any work": {"samples": idle_before,
+                                    "mean_w": sum(idle_before) / len(idle_before)}}
+    print(f"  idle before any work (phase 1): {len(idle_before)} samples, mean "
+          f"{out['idle before any work']['mean_w']:.1f} W")
+    for label, work, rep in runs:
+        samples = _power_draw(work, 4.0)
+        mean = sum(samples) / len(samples)
+        row = {"samples": samples, "mean_w": mean}
+        line = (f"  {label}: {len(samples)} samples, mean {mean:.1f} W (min "
+                f"{min(samples):.1f}, max {max(samples):.1f})")
+        if rep is not None:
+            pr = analyze_power(rep, H100)
+            row["model_w"] = pr.avg_watts
+            row["model_shares"] = pr.shares
+            line += f"; analyze_power on h100: {pr.avg_watts:.1f} W"
+        else:
+            line += f"; the h100 spec's static_watts: {H100.static_watts:.1f} W"
+        print(line)
+        if rep is not None:
+            print("\n".join("    " + r for r in pr.table().splitlines()))
+        out[label] = row
+    return out
+
+
+# the debugger's tolerance for one fp32 LeNet step against float64: both the
+# absolute and the relative error (to the node's largest output) must exceed
+# their bound for a node to diverge
+DEBUG_RTOL, DEBUG_ATOL = 1e-4, 1e-6
+
+
+def analysis_phase(lenet):
+    """Section V's views of the LeNet step and the section III-D debugger on
+    the card: the phase analysis and its reconciliation, the legacy vision
+    view's camping index, ``first_divergence`` of one training step (the
+    hand kernels on the card against float64 on the CPU) clean and with one
+    planted bf16 rounding, and the analysis CLI's JSON."""
+    import os
+
+    import repro_torch.models.lenet as lenet_mod
+    from repro_torch import lenet_repro
+    from repro_torch.core import H100, Simulator, first_divergence
+    from repro_torch.models.lenet import sgd_step
+    phase("14. phase analysis, vision and the differential debugger")
+    ar, rep = lenet["analysis"], lenet["report"]
+    err = ar.reconcile()
+    print(f"  analyze: {len(ar.phases)} phases, bucket reconciliation {err * 100:.4f}%")
+    check(err < 0.01 and len(ar.phases) >= 2, "phase analysis of the LeNet step failed")
+    vr = Simulator(hw=H100).vision(rep)
+    print(f"  vision: camping index {vr.camping_index:.3f} over {len(vr.buckets)} "
+          f"buckets, {len(vr.phases)} phases")
+    check(math.isfinite(vr.camping_index) and vr.camping_index >= 1.0 - 1e-9,
+          f"bad camping index {vr.camping_index}")
+
+    model, args = lenet["model"], lenet["step_args"]
+
+    def step(p, x, y):
+        return sgd_step(model, p, x, y, lenet_repro.LR)
+
+    t0 = time.perf_counter()
+    div = first_divergence(step, args, rtol=DEBUG_RTOL, atol=DEBUG_ATOL)
+    print(f"  first_divergence, one LeNet-full step on the card vs float64 on the CPU "
+          f"(rtol {DEBUG_RTOL}, atol {DEBUG_ATOL}): {div or 'none'} "
+          f"({time.perf_counter() - t0:.1f}s)")
+    check(div is None, f"the clean step diverges: {div}")
+    # plant: fc2's product takes its inputs rounded to bf16
+    orig, calls = lenet_mod.matmul, []
+
+    def planted(a, b, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            a, b = a.bfloat16().float(), b.bfloat16().float()
+        return orig(a, b, **kw)
+
+    lenet_mod.matmul = planted
+    try:
+        div = first_divergence(step, args, rtol=DEBUG_RTOL, atol=DEBUG_ATOL)
+    finally:
+        lenet_mod.matmul = orig
+    print(f"  planted (fc2's inputs rounded to bf16): {div}")
+    f1 = model.cfg.fc_dims[0]
+    check(div is not None and div.primitive == "aten._to_copy.default"
+          and div.out_dtypes == ("bfloat16",) and div.out_shapes == [(lenet_repro.BATCH, f1)],
+          f"the planted rounding was not found at fc2's input: {div}")
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "lenet", "--full",
+                          "--hw", "h100", "--json", "-"], capture_output=True, text=True,
+                         env=env, timeout=600)
+    check(cli.returncode == 0, f"the analysis CLI failed: {cli.stderr[-2000:]}")
+    doc = json.loads(cli.stdout[cli.stdout.rindex("\n{\n") + 1:])
+    print(f"  python -m repro_torch.analysis lenet --full --hw h100 --json -: "
+          f"{len(doc['phases'])} phases, reconcile {doc['reconcile_max_rel_error']:.2e}, "
+          f"modeled step {doc['summary']['total_seconds'] * 1e3:.3f} ms")
+    check(doc["hw"] == "h100" and doc["reconcile_max_rel_error"] < 0.01,
+          "the analysis CLI's JSON does not reconcile")
 
 
 def main() -> int:
@@ -1038,18 +1386,23 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     try:
         import torch
-        name = device_phase()
+        name, idle = device_phase()
         build_phase()
         mm_err = matmul_phase()
         wino_errs = winograd_phase()
         flash_err = flash_phase()
-        launches, pps = main_path_phase()
+        launches, pps, lenet = main_path_phase()
         kernels = timing_phase(launches, pps, mm_err, wino_errs)
-        step_phase()
+        step = step_phase()
         res, serve_launches = serve_phase()
-        serve_sim_phase(res)
-        del res
+        serve_sim = serve_sim_phase(res)
         kernels.append(flash_timing_phase(serve_launches, flash_err))
+        correlation = correlation_phase(lenet, step, res, serve_sim)
+        power = power_phase(lenet, step, res, serve_sim, idle)
+        del res, serve_sim
+        analysis_phase(lenet)
+        (ROOT / "chiprun_out" / "chip_smoke_analysis.json").write_text(json.dumps(
+            {"correlation": correlation, "power": power}, indent=1))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

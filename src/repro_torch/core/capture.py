@@ -37,8 +37,8 @@ from __future__ import annotations
 
 import operator
 import time
-from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -132,6 +132,9 @@ class _Emitter:
         self.names: Dict[torch.fx.Node, str] = {}
         #: multi-output nodes emitted as separate instructions: index -> name
         self.parts: Dict[torch.fx.Node, Dict[int, str]] = {}
+        #: the instructions each node was emitted as, by node name
+        self.emitted: Dict[str, List[str]] = {}
+        self._current: List[str] = []
 
     # -- helpers ----------------------------------------------------------
     def inst(self, name: str, type_str: str, opcode: str,
@@ -139,6 +142,7 @@ class _Emitter:
         ops = ", ".join(f"%{o}" for o in operands)
         tail = f", {attrs}" if attrs else ""
         self.lines.append(f"  %{name} = {type_str} {opcode}({ops}){tail}")
+        self._current.append(name)
         return name
 
     def tensor_operands(self, node: torch.fx.Node) -> List[str]:
@@ -160,12 +164,17 @@ class _Emitter:
 
     # -- node kinds -------------------------------------------------------
     def emit(self, node: torch.fx.Node) -> None:
+        self._current = self.emitted.setdefault(node.name, [])
+        self._emit(node)
+
+    def _emit(self, node: torch.fx.Node) -> None:
         if node.op == "placeholder":
             v = self.val(node)
             if not isinstance(v, torch.Tensor):
                 return
             self.lines.append(f"  %{node.name} = {hlo_type(v)} "
                               f"parameter({len(self.params)})")
+            self._current.append(node.name)
             self.params.append(f"{node.name}: {hlo_type(v)}")
             self.names[node] = node.name
             return
@@ -416,8 +425,10 @@ def _register_kernel_ops() -> None:
     _SPECIAL[torch.ops.repro_torch.flash_attention.default] = _flash_attention
 
 
-def graph_to_hlo(gm: torch.fx.GraphModule) -> str:
-    """HLO text of a traced aten graph (see the module docstring)."""
+def emit_graph(gm: torch.fx.GraphModule) -> Tuple[str, Dict[str, Tuple[str, ...]]]:
+    """HLO text of a traced aten graph (see the module docstring), and the
+    names of the instructions each node was emitted as, by node name (none
+    for a node that emits nothing, such as a ``getitem`` of a part)."""
     _register_kernel_ops()
     em = _Emitter(gm)
     out_node = None
@@ -427,17 +438,23 @@ def graph_to_hlo(gm: torch.fx.GraphModule) -> str:
         em.emit(node)
     if out_node is None:
         raise ValueError("traced graph has no output node")
-    return em.finish(out_node)
+    return em.finish(out_node), {k: tuple(v) for k, v in em.emitted.items()}
 
 
 @dataclass
 class Captured:
-    """One captured workload: the aten graph, its HLO text and parsed IR."""
+    """One captured workload: the aten graph, its HLO text and parsed IR.
+
+    ``node_instructions`` maps each graph node's name to the names of the
+    entry instructions it was emitted as, so a measurement taken per node
+    (:func:`repro_torch.core.correlate.card_reference`) lands on the same
+    instructions the engine simulates."""
     name: str
     graph: torch.fx.GraphModule
     hlo_text: str
     module: SimModule
     capture_seconds: float
+    node_instructions: Dict[str, Tuple[str, ...]] = field(default_factory=dict)
 
 
 def capture(fn: Callable, *example_args, name: str = "workload") -> Captured:
@@ -450,7 +467,7 @@ def capture(fn: Callable, *example_args, name: str = "workload") -> Captured:
 
     t0 = time.time()
     gm = make_fx(fn, tracing_mode="fake")(*example_args)
-    text = graph_to_hlo(gm)
+    text, emitted = emit_graph(gm)
     module = parse_hlo_module(text)
     return Captured(name=name, graph=gm, hlo_text=text, module=module,
-                    capture_seconds=time.time() - t0)
+                    capture_seconds=time.time() - t0, node_instructions=emitted)

@@ -140,8 +140,30 @@ H100 = HardwareSpec(
     dcn_bw=50e9,                   # assumption: one 400 Gb/s NIC per GPU
     # assumption: eager PyTorch dispatch + CUDA launch per op, not measured
     op_launch_overhead_s=5e-6,
-    # the energy constants keep the TPU defaults: the power model is not
-    # ported yet, and nothing reads them for this spec
+    # --- energy (read by repro_torch.core.power.analyze_power) ---
+    # assumption: half of the 700 W board limit spent at the dense bf16
+    # tensor-core peak (data sheet): 350 W / 989e12 FLOP/s
+    pj_per_mxu_flop=0.354,
+    # published estimate: Horowitz, ISSCC 2014, 45 nm: an fp32 multiply
+    # (3.7 pJ) and add (0.9 pJ) per 2-FLOP FMA, not scaled to the H100's
+    # 4N process, so an upper bound
+    pj_per_vpu_flop=2.3,
+    # published estimate: O'Connor et al., MICRO 2017: HBM2 at 3.9 pJ/bit
+    pj_per_hbm_byte=31.2,
+    # published estimate: Horowitz, ISSCC 2014: a 64-bit read of an 8 KB
+    # SRAM, 10 pJ (45 nm), for the on-chip traffic the model charges
+    pj_per_vmem_byte=1.25,
+    # assumption: NVLink's SerDes at 5 pJ/bit (NVIDIA quotes 1.3 pJ/bit for
+    # the in-package NVLink-C2C, which is shorter)
+    pj_per_ici_byte=40.0,
+    # measured: the card's power.draw by nvidia-smi while it is idle with a
+    # live context right after load (the serving phases), the mean of 45
+    # samples over 4.5 s; other runs read 123.1-132.9 W.  The card
+    # draws 70.8-73.4 W idle before any work: the static share of a step
+    # is taken as the draw between kernels of a running workload, with
+    # its clocks still raised (chip_smoke.py phases 1 and 13, NVIDIA H100
+    # 80GB HBM3 at a 700.00 W power limit)
+    static_watts=129.3,
 )
 
 CHIPS: Dict[str, HardwareSpec] = {"tpu-v5e": V5E, "tpu-v5p": V5P,

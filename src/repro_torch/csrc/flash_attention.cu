@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): O = softmax(Q K^T * scale) V
 // with GQA, causal and sliding-window masks and an optional tanh softcap,
-// fp32 or bf16 in, m/l/acc in fp32, output in the input dtype.
+// fp32, bf16 or fp16 in, m/l/acc in fp32, output in the input dtype.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py, `flash_attention_fwd`
 // (Pallas body `_attn_kernel`): an online-softmax forward over a
@@ -15,7 +15,8 @@
 // Two hand kernels, chosen by dtype in the C entry point (not a fallback:
 // each dtype has exactly one):
 //
-// * bf16 (`attn_bf16_kernel`): the two products on the tensor cores with
+// * bf16 and fp16 (`attn_wgmma_kernel`, one instance each): the two
+//   products on the tensor cores with
 //   `wgmma`, K/V fed by TMA.  One CTA of two warpgroups per (128 query rows,
 //   head, batch); each warpgroup owns 64 rows.  Q (128 rows) and a 2-stage
 //   ring of 128-key K and V tiles are loaded by TMA through 4-D tensor maps
@@ -27,9 +28,10 @@
 //   frees a stage.  S = Q K^T is m64n128k16 with both operands K-major in
 //   shared memory; the softmax runs in registers on the accumulator layout
 //   (scaled by scale * log2(e), exp2f; a row's max and sum are reduced over
-//   the 4 threads that hold it); P is rounded to bf16 in registers and fed
+//   the 4 threads that hold it); P is rounded to the input's 16-bit type in
+//   registers and fed
 //   as wgmma's A operand to O += P V, with V from shared memory as an
-//   MN-major B operand.  Rounding p to bf16 is the one rounding the fp32
+//   MN-major B operand.  Rounding p to 16 bits is the one rounding the fp32
 //   kernel does not make (l sums the unrounded p).  O stays in fp32
 //   registers until the end.  Warp specialisation and overlapping the
 //   softmax with the next product are later work.
@@ -44,13 +46,14 @@
 // Both: KV tiles wholly above the causal diagonal or wholly before the
 // window are never loaded; masked entries get p = 0 explicitly and a row that
 // has seen no visible key keeps acc = l = 0; only tiles that cross a mask edge
-// or the end of t pay for masking (bf16); ragged s and t are masked in the
+// or the end of t pay for masking (16-bit); ragged s and t are masked in the
 // kernel, so the wrapper pads nothing.  GQA: head h reads kv head h / (H /
 // KVH).  All tensors are taken with strides (unit stride on d), so the
 // model's (b, s, heads, d) activations need no transpose copies.  Q tiles
 // are issued last-first, so the longest causal rows start earliest.
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -232,7 +235,7 @@ int launch_f32(const Params& p, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- bf16 ----
+// ------------------------------------------------------- bf16 and fp16 ----
 
 constexpr int kRows = 128;     // query rows per CTA: two warpgroups of 64
 constexpr int kKeys = 128;     // keys per K/V tile
@@ -324,74 +327,104 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// two floats rounded to the 16-bit type T, packed in one register
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// the operand type of the wgmma instructions for T
+template <typename T> constexpr bool kF16 = false;
+template <> constexpr bool kF16<__half> = true;
 
 // S (64 x 128) = Q (64 x 16) K^T (16 x 128), and O (64 x N) += P (64 x 16) V (16 x N):
 // the accumulator is spread over the warpgroup's 128 threads (N / 2 floats each)
+#define WGMMA_SS_M64N128(TY)                                                                                  \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                             \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                        \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                       \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+      : "l"(da), "l"(db), "r"(accumulate));
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db,
                                                  int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O += P V for one 16-key step over the N columns of one V box
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 32) {
-    wgmma_rs_m64n32(d, a, db);
+  if constexpr (kF16<T>) {
+    WGMMA_SS_M64N128("f16");
   } else {
-    wgmma_rs_m64n64(d, a, db);
+    WGMMA_SS_M64N128("bf16");
   }
 }
 
-template <int D>
+#define WGMMA_RS_M64N32(TY)                                                                                \
+  asm volatile(                                                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"                                           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "                              \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),      \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  if constexpr (kF16<T>) {
+    WGMMA_RS_M64N32("f16");
+  } else {
+    WGMMA_RS_M64N32("bf16");
+  }
+}
+
+#define WGMMA_RS_M64N64(TY)                                                                                   \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "                       \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  if constexpr (kF16<T>) {
+    WGMMA_RS_M64N64("f16");
+  } else {
+    WGMMA_RS_M64N64("bf16");
+  }
+}
+
+// O += P V for one 16-key step over the N columns of one V box
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 32) {
+    wgmma_rs_m64n32<T>(d, a, db);
+  } else {
+    wgmma_rs_m64n64<T>(d, a, db);
+  }
+}
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
-attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using L = Tile<D>;
   constexpr int kBoxHalf = L::kBoxCols / 2;  // accumulator floats a thread holds per V box
@@ -488,7 +521,7 @@ attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk * 16 / L::kBoxCols) * L::kBoxBytes + (kk * 16 % L::kBoxCols) * 2;
-      wgmma_ss_m64n128(sc, make_desc(q_rows + off, 16, L::kGroupBytes, L::kLayout),
+      wgmma_ss_m64n128<T>(sc, make_desc(q_rows + off, 16, L::kGroupBytes, L::kLayout),
                        make_desc(K_TILE(s) + off, 16, L::kGroupBytes, L::kLayout), kk > 0);
     }
     wgmma_commit();
@@ -542,13 +575,13 @@ attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
       for (int i = 0; i < kBoxHalf; ++i) o_acc[c][i] *= alpha[(i >> 1) & 1];
 
-    // P in bf16 as wgmma's A fragments: the accumulator layout of S is the
+    // P in T as wgmma's A fragments: the accumulator layout of S is the
     // register layout of A, 4 registers per 16 keys
     uint32_t pa[kKeys / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      for (int r = 0; r < 4; ++r) pa[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 #pragma unroll
     for (int c = 0; c < L::kBoxes; ++c) fence_regs(o_acc[c]);
     wgmma_fence();
@@ -559,7 +592,7 @@ attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
       for (int c = 0; c < L::kBoxes; ++c) {
         const uint32_t v = V_TILE(s) + c * L::kBoxBytes + kk * 16 * L::kRowBytes;
-        wgmma_pv<L::kBoxCols>(o_acc[c], pa[kk],
+        wgmma_pv<T, L::kBoxCols>(o_acc[c], pa[kk],
                               make_desc(v, L::kGroupBytes, L::kGroupBytes, L::kLayout));
       }
     wgmma_commit();
@@ -578,7 +611,7 @@ attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     inv[r] = 1.f / fmaxf(l_r[r], 1e-30f);
   }
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.osb + h * p.osh;
+  T* o = static_cast<T*>(p.o) + b * p.osb + h * p.osh;
 #pragma unroll
   for (int c = 0; c < L::kBoxes; ++c)
 #pragma unroll
@@ -589,7 +622,7 @@ attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const int row = r0 + 8 * r;
         if (row < p.S)
           *reinterpret_cast<uint32_t*>(o + row * p.oss + col) =
-              pack_bf16(o_acc[c][4 * jj + 2 * r] * inv[r], o_acc[c][4 * jj + 2 * r + 1] * inv[r]);
+              pack2<T>(o_acc[c][4 * jj + 2 * r] * inv[r], o_acc[c][4 * jj + 2 * r + 1] * inv[r]);
       }
     }
 }
@@ -621,7 +654,7 @@ EncodeTiled encoder() {
 // a tensor map over a (d, rows, heads, batch) view with element strides
 // (1, s_row, s_head, s_b) and a box of (L::kBoxCols, 128, 1, 1); rows past
 // `rows` arrive zero-filled
-template <int D>
+template <typename T, int D>
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads, int B, long long s_row,
               long long s_head, long long s_b) {
   using L = Tile<D>;
@@ -638,21 +671,23 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads, int B, lon
   }
   const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)kRows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+  const CUtensorMapDataType type =
+      kF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+template <typename T, int D>
+int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!make_map<D>(&mq, p.q, p.S, p.H, B, p.qss, p.qsh, p.qsb) ||
-      !make_map<D>(&mk, p.k, p.T, p.KVH, B, p.kst, p.ksh, p.ksb) ||
-      !make_map<D>(&mv, p.v, p.T, p.KVH, B, p.vst, p.vsh, p.vsb))
+  if (!make_map<T, D>(&mq, p.q, p.S, p.H, B, p.qss, p.qsh, p.qsb) ||
+      !make_map<T, D>(&mk, p.k, p.T, p.KVH, B, p.kst, p.ksh, p.ksb) ||
+      !make_map<T, D>(&mv, p.v, p.T, p.KVH, B, p.vst, p.vsh, p.vsb))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = Tile<D>::kSmem;
-  auto kern = attn_bf16_kernel<D>;
+  auto kern = attn_wgmma_kernel<T, D>;
   // the shared-memory limit is set once per instance, not at every launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -664,9 +699,10 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (wgmma + TMA kernel).
-// Strides are in elements, for the (batch, head, position) dims; the head
-// dim has unit stride.  The bf16 kernel needs 16-byte aligned bases and byte
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16, 2 = float16 (wgmma +
+// TMA kernel).  Strides are in elements, for the (batch, head, position)
+// dims; the head dim has unit stride.  The wgmma kernel needs 16-byte
+// aligned bases and byte
 // strides (the launcher checks).  Returns 0 or a cudaError_t code.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
@@ -683,9 +719,13 @@ extern "C" int repro_flash_attention(
     if (D == 64) return launch_f32<64>(p, B, s);
     if (D == 128) return launch_f32<128>(p, B, s);
   } else if (dtype == 1) {
-    if (D == 32) return launch_bf16<32>(p, B, s);
-    if (D == 64) return launch_bf16<64>(p, B, s);
-    if (D == 128) return launch_bf16<128>(p, B, s);
+    if (D == 32) return launch_wgmma<__nv_bfloat16, 32>(p, B, s);
+    if (D == 64) return launch_wgmma<__nv_bfloat16, 64>(p, B, s);
+    if (D == 128) return launch_wgmma<__nv_bfloat16, 128>(p, B, s);
+  } else if (dtype == 2) {
+    if (D == 32) return launch_wgmma<__half, 32>(p, B, s);
+    if (D == 64) return launch_wgmma<__half, 64>(p, B, s);
+    if (D == 128) return launch_wgmma<__half, 128>(p, B, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-// Block-tiled matrix product C = A @ B for Hopper (sm_90a), fp32 or bf16 in,
+// Block-tiled matrix product C = A @ B for Hopper (sm_90a), fp32, bf16 or fp16 in,
 // fp32 accumulation, output in the input dtype.
 //
 // Replaces: src/repro/kernels/tiled_matmul/kernel.py, `tiled_matmul` (Pallas
@@ -31,12 +31,13 @@
 //   operand is staged with its unit-stride dim contiguous in shared memory;
 //   16-byte copies where that dim's rows are 16-byte aligned, else 4-byte
 //   copies (the backward's transposed views, e.g. a 100-byte row stride).
-//   bf16 operands are converted to fp32 on a synchronous load instead.
+//   bf16 and fp16 operands are converted to fp32 on a synchronous load instead.
 // Rows past M and columns past N are never loaded (their sums are dropped),
 // nor is k past the split's end (the last stage's loop stops there).  A and
 // B are taken with arbitrary non-negative strides, so the backward pass hands
 // in transposed views without copies.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,6 +50,11 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) { return v
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -127,7 +133,7 @@ __device__ __forceinline__ void load_stage(float* S, const Operand& op, int r0, 
       if constexpr (sizeof(T) == 4) {
         cp_async4(dst + q, src);
       } else {
-        dst[q] = __bfloat162float(*src);
+        dst[q] = to_f32(*src);
       }
     }
   }
@@ -296,7 +302,7 @@ int dispatch(const void* a, const void* b, void* c, void* ws, int M, int N, int 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  `splits` K-splits (1: C is written
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  `splits` K-splits (1: C is written
 // directly; more: `ws` is a float32 (splits, M, N) workspace).  Returns 0
 // or a cudaError_t code.
 extern "C" int repro_tiled_matmul(const void* a, const void* b, void* c, void* ws,
@@ -310,5 +316,7 @@ extern "C" int repro_tiled_matmul(const void* a, const void* b, void* c, void* w
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(a, b, c, ws, M, N, K, sam, sak, sbk, sbn, bm, bn, bk, splits,
                                    s);
+  if (dtype == 2)
+    return dispatch<__half>(a, b, c, ws, M, N, K, sam, sak, sbk, sbn, bm, bn, bk, splits, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 // Winograd F(2x2, 3x3) convolution for Hopper (sm_90a): one launch from an
-// NHWC input x to an NHWC output y, fp32 or bf16 in and out, fp32 inside.
+// NHWC input x to an NHWC output y, fp32, bf16 or fp16 in and out, fp32 inside.
 //
 // Replaces: src/repro/kernels/winograd/kernel.py, `winograd_tiles` (Pallas
 // body `_wino_kernel`): per 4x4 input tile V = B^T d B, then at each of the
@@ -32,10 +32,10 @@
 //   again from L2), where the unfused program wrote 4x x's bytes of tiles
 //   and read them back.  y is written in place, so nothing reassembles it.
 // * A cp.async ring of 2 stages over cin, 32 bytes of channels a pixel a
-//   chunk (8 fp32, 16 bf16): one chunk's halo and U slab are in flight
+//   chunk (8 fp32, 16 bf16 or fp16): one chunk's halo and U slab are in flight
 //   while the previous chunk is transformed and multiplied.  16-byte copies
 //   where x's pixel rows (and U's rows) are 16-byte aligned, 4-byte copies
-//   (fp32) or plain loads (bf16) otherwise, as for cin = 3.  Pixels outside
+//   (fp32) or plain loads (bf16, fp16) otherwise, as for cin = 3.  Pixels outside
 //   the image and channels past cin are zero-filled by the copy's source
 //   size, with no branch around the copy.
 // * The input transform writes V for the chunk to shared memory in the A
@@ -55,12 +55,14 @@
 //   TF32), then a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (small ones first), which
 //   keeps the error at fp32's order where plain TF32 would break 1e-4.
 //   bf16: U is exact in bf16, so only V is split into bf16 hi + lo, two
-//   m16n8k16 products accumulating in fp32.
+//   m16n8k16 products accumulating in fp32.  fp16 takes the same route with
+//   the f16 product (U exact in fp16, V split into fp16 hi + lo).
 // * No atomics and no sum across blocks: a second call gives the same bits.
-// Shared memory: 83 KB (fp32) or 107 KB (bf16) a block in image mode, so
+// Shared memory: 83 KB (fp32) or 107 KB (bf16, fp16) a block in image mode, so
 // two blocks of 256 threads share an SM; registers are capped at 128 a
 // thread for the same reason (64 of them hold the accumulators).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,7 +84,7 @@ struct Cfg {
   static constexpr int kEpu = 16 / (int)sizeof(T);     // elements in 16 bytes
   static constexpr int kChunk = 32 / (int)sizeof(T);   // input channels a chunk
   static constexpr int kUBytes = 16 * kChunk * kURow * (int)sizeof(T);
-  // fp32: one V array; bf16: its hi and lo halves
+  // fp32: one V array; bf16 and fp16: its hi and lo halves
   static constexpr int kVBytes = 16 * kTiles * kVRow * 4 * (sizeof(T) == 4 ? 1 : 2);
 };
 
@@ -142,7 +144,7 @@ __device__ __forceinline__ void copy_unit(void* dst, const T* src, int n, int ve
 #pragma unroll
     for (int i = 0; i < kEpu; ++i)
       cp_async4(static_cast<char*>(dst) + 4 * i, src + (i < n ? i : 0), i < n ? 4 : 0);
-  } else {  // bf16 rows off a 4-byte boundary (odd cin): plain loads
+  } else {  // 16-bit rows off a 4-byte boundary (odd cin): plain loads
     const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
     unsigned short* d = static_cast<unsigned short*>(dst);
 #pragma unroll
@@ -173,7 +175,39 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-// B operand of m16n8k16 from a row-major (k x n) bf16 tile: rows k = lane % 16
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The 16-bit types' pairs: (lo, hi) to and from two floats, and the
+// tensor-core product of their fragments.
+template <typename T> struct Pair;
+template <> struct Pair<__nv_bfloat16> {
+  using T2 = __nv_bfloat162;
+  static __device__ __forceinline__ float2 to_float2(T2 v) { return __bfloat1622float2(v); }
+  static __device__ __forceinline__ T2 from_floats(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    mma_bf16(c, a, b);
+  }
+};
+template <> struct Pair<__half> {
+  using T2 = __half2;
+  static __device__ __forceinline__ float2 to_float2(T2 v) { return __half22float2(v); }
+  static __device__ __forceinline__ T2 from_floats(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    mma_f16(c, a, b);
+  }
+};
+
+// B operand of m16n8k16 from a row-major (k x n) 16-bit tile: rows k = lane % 16
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* b, const void* row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(b[0]), "=r"(b[1])
@@ -218,6 +252,9 @@ template <typename T> __device__ __forceinline__ void store1(T* p, float v);
 template <> __device__ __forceinline__ void store1<float>(float* p, float v) { *p = v; }
 template <> __device__ __forceinline__ void store1<__nv_bfloat16>(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ void store1<__half>(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 template <typename T, bool kImage>
 __global__ void __launch_bounds__(kThreads, 2) wino_kernel(const Geometry g) {
@@ -295,7 +332,7 @@ __global__ void __launch_bounds__(kThreads, 2) wino_kernel(const Geometry g) {
   };
 
   // this thread's (tile, channel) of the input transform: fp32 one channel,
-  // bf16 a pair of channels (one 32-bit word)
+  // bf16 and fp16 a pair of channels (one 32-bit word)
   const int tt = tid >> 3, tc = tid & 7;
   const int win = kImage ? 2 * (tt / g.tw_patch) * g.halo_w + 2 * (tt % g.tw_patch) : tt * 16;
   const int win_row = kImage ? g.halo_w : 4;
@@ -340,26 +377,28 @@ __global__ void __launch_bounds__(kThreads, 2) wino_kernel(const Geometry g) {
 #pragma unroll
       for (int p = 0; p < 16; ++p) vs[(p * kTiles + tt) * kVRow + tc] = v[p];
     } else {
+      using P2 = Pair<T>;
+      using T2 = typename P2::T2;
       float d0[4][4], d1[4][4], v0[16], v1[16];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
+          const float2 f = P2::to_float2(reinterpret_cast<const T2*>(
               raw + (win + i * win_row + j) * kRawRow)[tc]);
           d0[i][j] = f.x;
           d1[i][j] = f.y;
         }
       input_transform(d0, v0);
       input_transform(d1, v1);
-      __nv_bfloat162* vh = reinterpret_cast<__nv_bfloat162*>(vsm);
-      __nv_bfloat162* vl = vh + 16 * kTiles * kVRow;
+      T2* vh = reinterpret_cast<T2*>(vsm);
+      T2* vl = vh + 16 * kTiles * kVRow;
 #pragma unroll
       for (int p = 0; p < 16; ++p) {
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(v0[p], v1[p]);
-        const float2 h = __bfloat1622float2(hi);
+        const T2 hi = P2::from_floats(v0[p], v1[p]);
+        const float2 h = P2::to_float2(hi);
         vh[(p * kTiles + tt) * kVRow + tc] = hi;
-        vl[(p * kTiles + tt) * kVRow + tc] = __floats2bfloat162_rn(v0[p] - h.x, v1[p] - h.y);
+        vl[(p * kTiles + tt) * kVRow + tc] = P2::from_floats(v0[p] - h.x, v1[p] - h.y);
       }
     }
     __syncthreads();
@@ -419,11 +458,11 @@ __global__ void __launch_bounds__(kThreads, 2) wino_kernel(const Geometry g) {
 #pragma unroll
         for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-          for (int nf = 0; nf < 4; ++nf) mma_bf16(acc[pp][mf][nf], al[mf], bb[nf]);
+          for (int nf = 0; nf < 4; ++nf) Pair<T>::mma(acc[pp][mf][nf], al[mf], bb[nf]);
 #pragma unroll
         for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-          for (int nf = 0; nf < 4; ++nf) mma_bf16(acc[pp][mf][nf], ah[mf], bb[nf]);
+          for (int nf = 0; nf < 4; ++nf) Pair<T>::mma(acc[pp][mf][nf], ah[mf], bb[nf]);
       }
     }
     __syncthreads();  // V and this stage are free for the next chunk
@@ -497,16 +536,22 @@ int launch(int dtype, bool image, const Geometry& g, long long blocks, void* str
   if (dtype == 1)
     return image ? launch_t<__nv_bfloat16, true>(g, blocks, s)
                  : launch_t<__nv_bfloat16, false>(g, blocks, s);
+  if (dtype == 2)
+    return image ? launch_t<__half, true>(g, blocks, s) : launch_t<__half, false>(g, blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Shared memory a block of one instance takes: dtype 0 fp32, 1 bf16;
-// image 1 for the conv entry, 0 for the tiles entry.
+// Shared memory a block of one instance takes: dtype 0 fp32, 1 bf16, 2
+// fp16; image 1 for the conv entry, 0 for the tiles entry.  -1 for another
+// dtype.
 extern "C" int repro_winograd_smem_bytes(int dtype, int image) {
   if (dtype == 0) return image ? smem_bytes<float, true>() : smem_bytes<float, false>();
-  return image ? smem_bytes<__nv_bfloat16, true>() : smem_bytes<__nv_bfloat16, false>();
+  if (dtype == 1)
+    return image ? smem_bytes<__nv_bfloat16, true>() : smem_bytes<__nv_bfloat16, false>();
+  if (dtype == 2) return image ? smem_bytes<__half, true>() : smem_bytes<__half, false>();
+  return -1;
 }
 
 // Image mode: x (B,H,W,cin) with element strides sb, sh, sw and channel

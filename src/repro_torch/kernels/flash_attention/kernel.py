@@ -3,9 +3,9 @@
 
 The port of ``repro.kernels.flash_attention.kernel.flash_attention_fwd``:
 online-softmax attention with GQA, causal and sliding-window masks and an
-optional tanh softcap, m/l/acc in fp32, output in q's dtype.  bf16 runs on
-the tensor cores (``wgmma``) with q, k and v read by TMA, fp32 on the CUDA
-cores.  The CUDA source is built at first call; see the note at its top for
+optional tanh softcap, m/l/acc in fp32, output in q's dtype.  bf16 and fp16
+run on the tensor cores (``wgmma``) with q, k and v read by TMA, fp32 on the
+CUDA cores.  The CUDA source is built at first call; see the note at its top for
 the design.
 """
 from __future__ import annotations
@@ -19,7 +19,9 @@ from repro_torch.kernels.dispatch import launch
 
 #: the head dims compiled into the library; any other raises
 HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the dtypes the tensor-core kernel takes, through TMA
+_WGMMA = (torch.bfloat16, torch.float16)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
@@ -47,7 +49,7 @@ def check_tma_layout(name: str, shape, strides, itemsize: int,
                      data_ptr: int) -> None:
     """Raise unless TMA can read a (b, heads, s, d) tensor of this layout.
 
-    The bf16 kernel reads q, k and v through tensor maps, which need a base
+    The bf16 and fp16 kernel reads q, k and v through tensor maps, which need a base
     address on a 16-byte boundary and, for every dim the kernel steps (all
     but d, which must have unit stride), a byte stride that is a positive
     multiple of 16.  A dim of extent 1 is never stepped, so its stride does
@@ -55,11 +57,11 @@ def check_tma_layout(name: str, shape, strides, itemsize: int,
     all qualify.
     """
     if data_ptr % 16:
-        raise ValueError(f"flash_attention (bf16): {name}'s base address is not "
+        raise ValueError(f"flash_attention (16-bit): {name}'s base address is not "
                          f"16-byte aligned, as TMA needs")
     for dim, (n, st) in enumerate(zip(shape[:3], strides[:3])):
         if n > 1 and (st <= 0 or (st * itemsize) % 16):
-            raise ValueError(f"flash_attention (bf16): {name}'s stride {st} on dim "
+            raise ValueError(f"flash_attention (16-bit): {name}'s stride {st} on dim "
                              f"{dim} is not a positive multiple of 16 bytes, as TMA "
                              f"needs")
 
@@ -81,8 +83,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (b, h, s, d); k/v: (b, kv, t, d) -> (b, h, s, d) in q's dtype, on
     the card.
 
-    Takes fp32 or bf16 CUDA tensors of one dtype and d in ``HEAD_DIMS``,
-    with any non-negative strides whose last one is 1 (bf16: as
+    Takes fp32, bf16 or fp16 CUDA tensors of one dtype and d in
+    ``HEAD_DIMS``, with any non-negative strides whose last one is 1 (bf16
+    and fp16: as
     :func:`check_tma_layout` also requires): the model's
     (b, s, heads, d) activations are handed in as transposed views, and the
     output is laid out like q, so neither side copies.  Ragged s and t are
@@ -94,7 +97,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
     if not all(x.dtype == q.dtype for x in tensors) or q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 of one "
+        raise TypeError(f"flash_attention takes float32, bfloat16 or float16 of one "
                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]
@@ -114,7 +117,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)   # q's layout (strides) when q is dense
     if out.numel() == 0:
         return out
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _WGMMA:
         for name, x in (("q", q), ("k", k), ("v", v)):
             check_tma_layout(name, x.shape, x.stride(), x.element_size(), x.data_ptr())
     rc = launch(_lib(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -26,7 +26,10 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     check_rows_see_a_key(q.shape[2], k.shape[2], window)
-    return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    # laid out like q, as the kernel and the fake lay it out, so that a
+    # captured graph's views of it replay on the CPU too
+    return torch.empty_like(q).copy_(
+        attention_ref(q, k, v, causal=causal, window=window, softcap=softcap))
 
 
 @flash_attention_op.register_fake

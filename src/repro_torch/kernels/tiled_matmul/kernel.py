@@ -23,7 +23,7 @@ BLOCK_CONFIGS = ((64, 64, 64), (128, 128, 64), (128, 64, 128), (128, 128, 128))
 MIN_SLABS_PER_SPLIT = 4
 #: K-splits aim at this many blocks on each SM
 BLOCKS_PER_SM = 2
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
@@ -81,7 +81,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 64,
                  block_n: int = 64, block_k: int = 64) -> torch.Tensor:
     """a: (M, K), b: (K, N) -> (M, N) in a's dtype, on the card.
 
-    Takes fp32 or bf16 CUDA tensors of one dtype, with any non-negative
+    Takes fp32, bf16 or fp16 CUDA tensors of one dtype, with any non-negative
     strides (transposed views need no copy).  Ragged edges are masked in the
     kernel.  Raises on anything else, and if the launch fails.  Counts one
     launch per product, whatever the number of K-splits.
@@ -91,7 +91,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 64,
         raise ValueError(f"tiled_matmul needs both inputs on one CUDA device; "
                          f"got {a.device} and {b.device}")
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODES:
-        raise TypeError(f"tiled_matmul takes float32 or bfloat16 of one dtype; "
+        raise TypeError(f"tiled_matmul takes float32, bfloat16 or float16 of one dtype; "
                         f"got {a.dtype} and {b.dtype}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"tiled_matmul needs (M,K) @ (K,N); got "

@@ -10,8 +10,8 @@ One device body, two entry points:
   .winograd_tiles``, exactly the TPU kernel's function: pre-extracted 4x4
   tiles to 2x2 output tiles.
 
-Both take fp32 or bf16, compute in fp32 (3xTF32 or split-bf16 products on
-the tensor cores) and return the input dtype.  :func:`winograd_plan` is the
+Both take fp32, bf16 or fp16, compute in fp32 (3xTF32, split-bf16 or
+split-fp16 products on the tensor cores) and return the input dtype.  :func:`winograd_plan` is the
 conv launch's geometry in plain Python, so that the CPU tests can check its
 indexing.  The CUDA source is built at first call; see the note at its top
 for the design.
@@ -40,12 +40,12 @@ STAGES = 2
 # pixels (48 bytes each: 32 of channels, 16 of pad) and a U slab
 # (16 positions x one chunk of cin x 40 padded couts, 20,480 bytes in
 # either dtype); then V (16 positions x 32 tiles x 48 bytes, twice for
-# bf16's hi and lo halves)
+# the 16-bit dtypes' hi and lo halves)
 _RAW_ROW = 48
 _U_BYTES = 16 * 8 * 40 * 4
 _V_BYTES = 16 * 32 * 48
 _HALO_MAX = max((2 * th + 2) * (2 * tw + 2) for th, tw in PATCHES)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def smem_bytes(dtype: torch.dtype, image: bool = True) -> int:
@@ -161,7 +161,7 @@ def _check_inputs(name: str, a: torch.Tensor, u: torch.Tensor) -> None:
         raise ValueError(f"{name} needs both inputs on one CUDA device; got "
                          f"{a.device} and {u.device}")
     if a.dtype != u.dtype or a.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name} takes float32 or bfloat16 of one dtype; got "
+        raise TypeError(f"{name} takes float32, bfloat16 or float16 of one dtype; got "
                         f"{a.dtype} and {u.dtype}")
     if u.dim() != 4 or tuple(u.shape[:2]) != (4, 4) or u.shape[2] != a.shape[-1]:
         raise ValueError(f"{name} needs u (4,4,cin,cout) with the input's cin; got "
@@ -175,7 +175,7 @@ def winograd_conv(x: torch.Tensor, u: torch.Tensor,
     """x (b, H, W, cin) NHWC, u = G w G^T (4, 4, cin, cout)
     -> (b, oh, ow, cout) NHWC in x's dtype, in one launch on the card.
 
-    Takes fp32 or bf16 CUDA tensors of one dtype; x may have any
+    Takes fp32, bf16 or fp16 CUDA tensors of one dtype; x may have any
     non-negative strides whose channel stride is 1, u is contiguous.
     Raises ``TypeError`` on another dtype, ``ValueError`` on shapes,
     devices, strides or paddings it does not take, and ``RuntimeError`` if
@@ -208,7 +208,7 @@ def winograd_tiles(tiles: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """tiles (b, th, tw, 4, 4, cin), u (4, 4, cin, cout)
     -> (b, th, tw, 2, 2, cout) in the tiles' dtype, on the card.
 
-    Takes contiguous fp32 or bf16 CUDA tensors of one dtype.  Raises
+    Takes contiguous fp32, bf16 or fp16 CUDA tensors of one dtype.  Raises
     ``TypeError`` on another dtype, ``ValueError`` on shapes, devices or
     strides it does not take, and ``RuntimeError`` if the launch fails.
     """

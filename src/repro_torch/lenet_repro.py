@@ -1,20 +1,30 @@
-"""The paper's pipeline on LeNet, in the port: train, capture, simulate, and
-the section V conv-algorithm case study.
+"""The paper's experiments (sections IV-V) on LeNet, in the port.
 
-    PYTHONPATH=src python -m repro_torch.lenet_repro [--device cuda] [--hw h100]
+    PYTHONPATH=src python -m repro_torch.lenet_repro [--device cuda] [--hw h100] [--trace PATH]
 
 1. train LeNet (full config) with SGD until accuracy rises — the functional
    check the paper's self-checking MNIST app provides;
-2. capture one training step (forward, gradient, update) and simulate it;
-3. print the ``SimReport`` summary line, formatted as
-   ``python -m repro.analysis`` prints it;
-4. run the four cuDNN-analogue conv algorithms at the case-study shape on
-   the device (each held to the direct convolution), then capture and
-   simulate each: modeled microseconds and the dominant unit.
+2. capture one training step (forward, gradient, update), simulate it, and
+   correlate the simulator's time per op class against a reference (Fig.
+   6/7; the paper: within 30% overall): on the card, the card's own kernel
+   times for the captured program (``card_reference``); with ``--device
+   cpu``, the roofline stand-in;
+3. the power breakdown (Fig. 8);
+4. the four cuDNN-analogue conv algorithms at the case-study shape on the
+   device (each held to the direct convolution), then captured and
+   simulated: modeled microseconds, the dominant unit, channel camping and
+   the phase count (section V);
+5. AerialVision-style phase analysis of the training step (section V, Fig.
+   4/5): labeled phases, the ASCII timeline, the windowed run against the
+   full one, and the dataflow makespan against the serial chain;
+6. the memory hierarchy (section V, Figs. 22-25): the live-range HBM
+   footprint beside the card's own peak for the step, spills, channel
+   imbalance, and the dilation over the flat-clock model.
 
-The port of ``examples/lenet_paper_repro.py`` sections 1 and 4 plus the
-summary of ``repro.analysis.__main__``.  Runs on ``cuda`` unless
-``--device cpu`` is given.
+The port of ``examples/lenet_paper_repro.py``, with the example's own
+checks (each raises on failure).  ``--trace PATH`` also writes a
+chrome://tracing JSON of the step.  Runs on ``cuda`` unless ``--device cpu``
+is given.
 """
 from __future__ import annotations
 
@@ -27,7 +37,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch import config as C
-from repro_torch.core import CHIPS, Simulator
+from repro_torch.core import CHIPS, Simulator, card_reference
 from repro_torch.core.engine import SimReport
 from repro_torch.data.synthetic import synthetic_mnist_batches
 from repro_torch.device import resolve_device
@@ -90,8 +100,9 @@ def train(model: LeNet, data: Iterator[Tuple[torch.Tensor, torch.Tensor]]
 
 def conv_case_study(sim: Simulator, device: torch.device,
                     seed: int) -> Dict[str, Dict[str, Any]]:
-    """Run, check, capture and simulate each conv algorithm at the case-study
-    shape.  Each output is held to the direct fp32 convolution."""
+    """Run, check, capture, simulate and phase-analyze each conv algorithm at
+    the case-study shape.  Each output is held to the direct fp32
+    convolution."""
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn(CASE_X, generator=gen).to(device)
     w = torch.randn(CASE_W, generator=gen).to(device)
@@ -103,15 +114,44 @@ def conv_case_study(sim: Simulator, device: torch.device,
         cap = sim.capture(functools.partial(fn, padding="SAME"), x, w,
                           name=algo)
         r = sim.performance(cap)
+        a = sim.analysis(r, num_buckets=60)
         dom = max(r.unit_seconds, key=r.unit_seconds.get)
         print(f"  {algo:9s} modeled={r.total_seconds * 1e6:8.1f}us "
-            f"dominant={dom:4s} max_abs_err={err:.2e}")
+              f"dominant={dom:4s} camping={a.channels.imbalance:.2f} "
+              f"phases={len(a.phases)} max_abs_err={err:.2e}")
         out[algo] = {"modeled_us": r.total_seconds * 1e6, "dominant": dom,
+                     "camping": a.channels.imbalance, "phases": len(a.phases),
                      "max_abs_err": err, "shape": tuple(y.shape)}
     return out
 
 
-def run(device: Optional[str] = None, hw: str = "h100") -> Dict[str, Any]:
+def correlation(sim: Simulator, cap, args, device: torch.device):
+    """Section 2: the correlation table against the card's own kernel times
+    (on CUDA) or the roofline stand-in (on the CPU).  Returns (report, the
+    card's reference or None)."""
+    ref = card_reference(cap, *args) if device.type == "cuda" else None
+    cr = sim.correlate(cap, ref)
+    print("  reference: " + ("the card's device time of each captured node "
+                             "(torch.profiler)" if ref is not None
+                             else "the roofline stand-in (no card)"))
+    print(cr.table())
+    print(f"  (paper reports within 30%; we get {cr.overall_discrepancy * 100:.1f}%, "
+          f"Pearson r {cr.correlation:.3f} over {len(cr.rows)} op classes)")
+    return cr, ref
+
+
+def step_peak_bytes(model: LeNet, params, images, labels) -> int:
+    """The card's peak allocated bytes over one eager training step
+    (``torch.cuda.max_memory_allocated``, parameters and batch included)."""
+    torch.cuda.synchronize(model.device)
+    torch.cuda.reset_peak_memory_stats(model.device)
+    sgd_step(model, params, images, labels, LR)
+    torch.cuda.synchronize(model.device)
+    return torch.cuda.max_memory_allocated(model.device)
+
+
+def run(device: Optional[str] = None, hw: str = "h100",
+        trace: Optional[str] = None) -> Dict[str, Any]:
     """The whole pipeline; returns what each stage produced."""
     dev = resolve_device(device)
     if hw not in CHIPS:
@@ -124,7 +164,7 @@ def run(device: Optional[str] = None, hw: str = "h100") -> Dict[str, Any]:
     data = device_batches(model)
 
     print(f"== 1. train LeNet ({CONV_ALGO}, batch {BATCH}, {STEPS} steps, "
-        f"on {dev}) ==")
+          f"on {dev}) ==")
     t0 = time.perf_counter()
     trained = train(model, data)
     if dev.type == "cuda":
@@ -134,24 +174,90 @@ def run(device: Optional[str] = None, hw: str = "h100") -> Dict[str, Any]:
         raise RuntimeError(f"LeNet failed to learn: accuracy "
                            f"{trained['accuracy']:.3f} after {STEPS} steps")
 
-    print(f"== 2. capture + simulate one training step ({hw}) ==")
+    print(f"== 2. capture, simulate and correlate one training step ({hw}, Fig. 6/7) ==")
     sim = Simulator(hw=CHIPS[hw])
     images, labels = next(data)
-    cap = sim.capture(lambda p, x, y: sgd_step(model, p, x, y, LR),
-                      trained["params"], images, labels, name="lenet")
+    step_args = (trained["params"], images, labels)
+    cap = sim.capture(lambda p, x, y: sgd_step(model, p, x, y, LR), *step_args,
+                      name="lenet")
     rep = sim.performance(cap)
     print(f"  captured {len(cap.module.comp(cap.module.entry).ops)} ops in "
-        f"{cap.capture_seconds:.2f}s")
-
-    print("== 3. summary ==")
+          f"{cap.capture_seconds:.2f}s")
     for line in summary_lines("lenet", rep):
         print(line)
+    cr, ref = correlation(sim, cap, step_args, dev)
+
+    print("== 3. power breakdown (Fig. 8) ==")
+    power = sim.power(rep)
+    print(power.table())
 
     print("== 4. conv-algorithm case study (SS V) ==")
     algos = conv_case_study(sim, dev, SEED)
+
+    print("== 5. phase analysis of the training step (SS V, Fig. 4/5) ==")
+    ar = sim.analysis(rep, num_buckets=120)
+    print(ar.phase_table())
+    print(ar.ascii_timeline())
+    err = ar.reconcile()
+    print(f"  bucket<->summary reconciliation: max rel error {err * 100:.3f}%")
+    if not err < 0.01:
+        raise RuntimeError(f"bucketed totals diverge from SimReport: {err:.4f}")
+    # dataflow-scheduler cross-checks: overlap can only shorten the makespan
+    # relative to the serial chain, and the CTA-style windowed run agrees
+    # with the full run
+    serial_bound = rep.compute_seconds + rep.ici_seconds
+    if not rep.total_seconds <= serial_bound + 1e-12:
+        raise RuntimeError("dataflow makespan exceeds the serial-chain baseline")
+    print("  exposed: " + " ".join(
+        f"{u}={t * 1e6:.1f}us" for u, t in sorted(rep.exposed_seconds.items())))
+    print("  critical path: " + " ".join(
+        f"{u}={t * 1e6:.1f}us" for u, t in sorted(rep.critical_path_seconds.items())))
+    win = sim.performance(cap, window=(0, 40))
+    for key in ("total_flops", "total_hbm_bytes", "launch_overhead_seconds",
+                "total_seconds"):
+        full_v, win_v = getattr(rep, key), getattr(win, key)
+        if not abs(full_v - win_v) <= 0.01 * max(abs(full_v), 1e-30):
+            raise RuntimeError(f"windowed run diverges from full run on {key}")
+    print(f"  windowed run (40 detailed ops) matches full totals "
+          f"({len(win.timeline)} vs {len(rep.timeline)} timeline entries)")
+    distinct = {p.label for p in ar.phases if p.label != "idle"}
+    if not (len(ar.phases) >= 2 and distinct):
+        raise RuntimeError("phase segmentation found too few phases")
+    print(f"  detected {len(ar.phases)} phases "
+          f"({len(distinct)} distinct labels: {sorted(distinct)})")
+
+    print("== 6. memory hierarchy (SS V, Figs. 22-25) ==")
+    if rep.memory is None or not rep.peak_hbm_bytes > 0:
+        raise RuntimeError("the step's report has no memory model")
+    print(rep.memory.table(top=4))
+    print(f"  spill traffic: {rep.spill_bytes / 2**20:.2f} MiB "
+          f"({rep.spill_fraction * 100:.1f}% of HBM bytes), "
+          f"channel imbalance {rep.channel_imbalance:.2f}")
+    flat = Simulator(hw=CHIPS[hw], memory_model=False).performance(cap)
+    dilation = rep.total_seconds / max(flat.total_seconds, 1e-30)
+    print(f"  camping dilation vs flat-clock model: {dilation:.3f}x "
+          f"(per-channel contention is simulated mechanism, not annotation)")
+    if not dilation >= 1.0 - 1e-9:
+        raise RuntimeError("the per-channel model must never be faster")
+    if not rep.peak_hbm_bytes <= rep.hw.hbm_bytes:
+        raise RuntimeError(f"LeNet oversubscribes the {hw} spec's HBM")
+    card_peak = step_peak_bytes(model, *step_args) if dev.type == "cuda" else None
+    print(f"  modeled peak HBM footprint {rep.peak_hbm_bytes / 2**20:.2f} MiB; the "
+          f"card's peak allocated over one step "
+          + (f"{card_peak / 2**20:.2f} MiB (torch.cuda.max_memory_allocated, "
+             f"parameters and batch included)" if card_peak is not None
+             else "not measured (no card)"))
+    if trace:
+        with open(trace, "w") as f:
+            f.write(ar.to_chrome_trace())
+        print(f"  wrote chrome://tracing JSON -> {trace}")
     return {"train_seconds": train_s, "loss": trained["loss"],
-            "accuracy": trained["accuracy"], "report": rep,
-            "conv_algos": algos}
+            "accuracy": trained["accuracy"], "params": trained["params"],
+            "model": model, "step_args": step_args, "capture": cap,
+            "report": rep, "correlation": cr, "card_reference": ref,
+            "power": power, "conv_algos": algos, "analysis": ar,
+            "window_report": win, "flat_report": flat,
+            "card_peak_bytes": card_peak}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -161,12 +267,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: cuda; fails without a GPU)")
     p.add_argument("--hw", default="h100",
                    help=f"simulated chip, one of {sorted(CHIPS)}")
+    p.add_argument("--trace", metavar="PATH",
+                   help="also write a chrome://tracing JSON of the step here")
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    run(device=args.device, hw=args.hw)
+    run(device=args.device, hw=args.hw, trace=args.trace)
     return 0
 
 

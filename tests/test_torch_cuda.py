@@ -1,18 +1,22 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
-Every test here needs an NVIDIA GPU and ``nvcc`` (the kernels have no CPU
-mode), is marked ``cuda``, and skips without a card.  The file imports no
-``jax``, so it also runs where only PyTorch is installed:
+Every kernel test here needs an NVIDIA GPU and ``nvcc`` (the kernels have
+no CPU mode), is marked ``cuda``, and skips without a card.  The file
+imports no ``jax``, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: fp32 1e-4 and bf16 2e-2 of the output's largest magnitude (the
+Tolerance, of the output's largest magnitude: fp32 1e-4 and bf16 2e-2 (the
 kernel sums in another order than the library; over K = 100,352 terms the
 error grows with the output), Winograd 1e-4 (fp32) and 2e-2 (bf16) against
 its plain version and 4e-4 against the direct conv (the transforms add
-roundings of their own), flash attention 2e-3 (fp32) and
-2e-2 (bf16) of the output's largest magnitude, as the reference kernel tests
-hold the Pallas kernel.
+roundings of their own), flash attention 2e-3 (fp32) and 2e-2 (bf16), as
+the reference kernel tests hold the Pallas kernel.  fp16: 1.2e-3 in all
+three, a little over one fp16 ulp (2**-10) of the scale, which a kernel
+that accumulates in fp32 and rounds once stays within; the one test here
+that runs without a card shows that the plain version on operands rounded
+to bf16 misses that limit at these shapes, so a kernel that took a bf16
+route would fail it.
 """
 import numpy as np
 import pytest
@@ -36,6 +40,8 @@ MM_SHAPES = [(128, 128, 128), (200, 300, 150), (64, 512, 32), (257, 129, 65),
 # conv2_x layer at batch 32
 WINO_CASES = [(1, 8, 4, 8), (2, 14, 8, 16), (1, 13, 3, 5), (1, 10, 64, 64),
               (64, 28, 16, 32), (32, 56, 64, 64)]
+#: every kernel takes the three float dtypes the reference kernels are run in
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -57,9 +63,17 @@ def _err(out, ref):
         max(1.0, float(ref.float().abs().max()))
 
 
+#: fp16: a little over one fp16 ulp of the scale (see the module's docstring)
+F16_TOL = 1.2e-3
+
+
+def _tol(dtype):
+    return {torch.float32: 1e-4, torch.float16: F16_TOL}.get(dtype, 2e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", MM_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_tiled_matmul_kernel(cuda, m, k, n, dtype):
     a = _randn(4, m, k, device=cuda).to(dtype)
     b = _randn(5, k, n, device=cuda).to(dtype)
@@ -69,7 +83,7 @@ def test_tiled_matmul_kernel(cuda, m, k, n, dtype):
     assert tiled_matmul.launches == before + 1
     assert out.dtype == dtype and tuple(out.shape) == (m, n)
     err, scale = _err(out, matmul_ref(a, b))
-    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
+    assert err <= _tol(dtype) * scale
 
 
 # the weight gradients of conv1 and conv2 (LeNet-full, batch 128) as the
@@ -80,7 +94,7 @@ SPLIT_K_GRADS = [(100352, 25, 6), (12800, 150, 16)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", SPLIT_K_GRADS, ids=["dw0", "dw1"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_tiled_matmul_split_k_weight_gradients(cuda, m, k, n, dtype):
     a = _randn(4, m, k, device=cuda).to(dtype)
     dy = _randn(5, m, n, device=cuda).to(dtype)
@@ -91,7 +105,7 @@ def test_tiled_matmul_split_k_weight_gradients(cuda, m, k, n, dtype):
     torch.cuda.synchronize()
     assert tiled_matmul.launches == before + 1      # one per product, whatever the splits
     err, scale = _err(out, matmul_ref(a.t(), dy))
-    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
+    assert err <= _tol(dtype) * scale
 
 
 @pytest.mark.cuda
@@ -136,21 +150,19 @@ def test_tiled_matmul_op_gradient_runs_the_kernel(cuda):
 def test_tiled_matmul_refuses_what_it_does_not_take(cuda):
     a = _randn(1, 8, 8, device=cuda)
     with pytest.raises(TypeError):
-        tiled_matmul(a.half(), a.half())
+        tiled_matmul(a.double(), a.double())
+    with pytest.raises(TypeError):
+        tiled_matmul(a.half(), a.bfloat16())
     with pytest.raises(ValueError):
         tiled_matmul(a, a[:4])
     with pytest.raises(ValueError):
         tiled_matmul(a, a.cpu())
 
 
-def _wino_tol(dtype):
-    return 2e-2 if dtype == torch.bfloat16 else 1e-4
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hw,cin,cout", WINO_CASES)
 @pytest.mark.parametrize("padding", ["SAME", "VALID"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_winograd_kernel(cuda, b, hw, cin, cout, padding, dtype):
     """The fused conv against its plain version in its own dtype (and, in
     fp32, against the direct conv), and the tiles entry against
@@ -166,7 +178,7 @@ def test_winograd_kernel(cuda, b, hw, cin, cout, padding, dtype):
     ref = conv3x3_winograd_ref(x, u, padding)
     assert out.shape == ref.shape
     err, scale = _err(out, ref)
-    assert err <= _wino_tol(dtype) * scale
+    assert err <= _tol(dtype) * scale
     if dtype == torch.float32:
         err, scale = _err(out, conv3x3_ref(x, w, padding))
         assert err <= 4e-4 * scale
@@ -175,11 +187,11 @@ def test_winograd_kernel(cuda, b, hw, cin, cout, padding, dtype):
     y = winograd_tiles(tiles, u)
     assert winograd_tiles.launches == before[1] + 1 and y.dtype == dtype
     err, scale = _err(y, winograd_tiles_ref(tiles, u))
-    assert err <= _wino_tol(dtype) * scale
+    assert err <= _tol(dtype) * scale
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("view", ["channel_slice", "transposed", "shifted"])
 def test_winograd_conv_takes_strided_x(cuda, dtype, view):
     """x with a unit channel stride but other strides of its own: a slice
@@ -193,11 +205,11 @@ def test_winograd_conv_takes_strided_x(cuda, dtype, view):
     for padding in ("SAME", "VALID"):
         out = winograd_conv(x, u, padding)
         err, scale = _err(out, conv3x3_winograd_ref(x, u, padding))
-        assert err <= _wino_tol(dtype) * scale
+        assert err <= _tol(dtype) * scale
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_winograd_repeats_bit_for_bit(cuda, dtype):
     """No atomics and no sum across blocks."""
     x = _randn(12, 8, 28, 28, 64, device=cuda).to(dtype)
@@ -212,7 +224,7 @@ def test_winograd_repeats_bit_for_bit(cuda, dtype):
 
 @pytest.mark.cuda
 def test_winograd_plan_matches_the_compiled_kernel(cuda):
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         for image in (True, False):
             assert kernel_smem_bytes(dtype, image) == smem_bytes(dtype, image)
 
@@ -245,7 +257,7 @@ def test_winograd_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         winograd_conv(x.double(), u.double())
     with pytest.raises(TypeError):
-        winograd_conv(x.half(), u.half())
+        winograd_conv(x.half(), u.bfloat16())
     with pytest.raises(TypeError):
         winograd_conv(x, u.bfloat16())
     with pytest.raises(ValueError):
@@ -275,6 +287,47 @@ FLASH_MASKS = [(True, 0, 0.0), (True, 64, 0.0), (False, 0, 0.0), (True, 0, 30.0)
                (False, 64, 30.0), (True, 200, 0.0)]
 
 
+def _flash_tol(dtype):
+    return {torch.float32: 2e-3, torch.float16: F16_TOL}.get(dtype, 2e-2)
+
+
+def _to_bf16(*xs):
+    return [x.bfloat16().half() for x in xs]
+
+
+@pytest.mark.parametrize("kind,shape,padding",
+                         [("mm", s, None) for s in MM_SHAPES]
+                         + [("wino", c, p) for c in WINO_CASES for p in ("SAME", "VALID")]
+                         + [("tiles", c, None) for c in WINO_CASES]
+                         + [("flash", s, None) for s in FLASH_SHAPES])
+def test_the_fp16_limit_rejects_operands_rounded_to_bf16(kind, shape, padding):
+    """On the CPU, with the fp16 kernel tests' own inputs: the plain version
+    on operands rounded to bf16 misses the fp16 limit (flash: with the
+    causal mask), so the card tests can tell an fp16 route from a bf16 one."""
+    cpu, f16 = torch.device("cpu"), torch.float16
+    if kind == "mm":
+        m, k, n = shape
+        a, b = _randn(4, m, k, device=cpu).half(), _randn(5, k, n, device=cpu).half()
+        out, ref = matmul_ref(*_to_bf16(a, b)), matmul_ref(a, b)
+    elif kind == "wino":
+        b, hw, cin, cout = shape
+        x = _randn(6, b, hw, hw, cin, device=cpu).half()
+        w = _randn(7, 3, 3, cin, cout, device=cpu).half()
+        xb, wb = _to_bf16(x, w)
+        out = conv3x3_winograd_ref(xb, filter_transform(wb, f16), padding)
+        ref = conv3x3_winograd_ref(x, filter_transform(w, f16), padding)
+    elif kind == "tiles":
+        b, hw, cin, cout = shape
+        tiles = _randn(8, b, 3, 4, 4, 4, cin, device=cpu).half()
+        u = _randn(9, 4, 4, cin, cout, device=cpu).half()
+        out, ref = winograd_tiles_ref(*_to_bf16(tiles, u)), winograd_tiles_ref(tiles, u)
+    else:
+        q, k, v = _flash_inputs(*shape, dtype=f16, device=cpu)
+        out, ref = attention_ref(*_to_bf16(q, k, v)), attention_ref(q, k, v)
+    err, scale = _err(out, ref)
+    assert err > F16_TOL * scale
+
+
 def _flash_inputs(b, h, kv, s, d, t=None, dtype=torch.float32, device=None):
     t = s if t is None else t
     return [_randn(seed, *shape, device=device).to(dtype) for seed, shape in
@@ -284,7 +337,7 @@ def _flash_inputs(b, h, kv, s, d, t=None, dtype=torch.float32, device=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kv,s,d", FLASH_SHAPES)
 @pytest.mark.parametrize("causal,window,softcap", FLASH_MASKS)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_kernel(cuda, b, h, kv, s, d, causal, window, softcap, dtype):
     q, k, v = _flash_inputs(b, h, kv, s, d, dtype=dtype, device=cuda)
     before = flash_attention_fwd.launches
@@ -294,21 +347,21 @@ def test_flash_attention_kernel(cuda, b, h, kv, s, d, causal, window, softcap, d
     assert out.dtype == dtype and out.shape == q.shape
     err, scale = _err(out, attention_ref(q, k, v, causal=causal, window=window,
                                          softcap=softcap))
-    assert err <= (2e-2 if dtype == torch.bfloat16 else 2e-3) * scale
+    assert err <= _flash_tol(dtype) * scale
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,t", [(200, 200), (256, 200), (128, 200), (1, 300), (77, 77),
                                  (1, 1), (2000, 2000), (77, 333)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_ragged(cuda, s, t, causal, window, dtype):
     """Ragged s != t, masked in the kernel: held to attention_ref (the
     reference wrapper's unmasked pads are wrong for causal s > t)."""
     q, k, v = _flash_inputs(1, 4, 2, s, 64, t=t, dtype=dtype, device=cuda)
     out = flash_attention(q, k, v, causal=causal, window=window)
     err, scale = _err(out, attention_ref(q, k, v, causal=causal, window=window))
-    assert err <= (2e-2 if dtype == torch.bfloat16 else 2e-3) * scale
+    assert err <= _flash_tol(dtype) * scale
 
 
 @pytest.mark.cuda
@@ -342,7 +395,9 @@ def test_flash_attention_op_gradient(cuda):
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
     q, k, v = _flash_inputs(1, 4, 2, 64, 64, device=cuda)
     with pytest.raises(TypeError):
-        flash_attention_fwd(q.half(), k.half(), v.half())
+        flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.half(), k.bfloat16(), v.bfloat16())
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_fwd(*_flash_inputs(1, 4, 2, 64, 256, device=cuda))
     with pytest.raises(ValueError):
@@ -355,15 +410,16 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_bf16_refuses_what_tma_cannot_read(cuda):
-    """bf16 reads q, k and v through TMA: a base off a 16-byte boundary or a
-    byte stride that is not a multiple of 16 raises; fp32 takes both."""
+    """bf16 and fp16 read q, k and v through TMA: a base off a 16-byte
+    boundary or a byte stride that is not a multiple of 16 raises; fp32
+    takes both."""
     _, k, v = _flash_inputs(1, 4, 2, 64, 64, device=cuda)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         shifted = _randn(15, 1, 4, 64, 72, device=cuda).to(dtype)[..., 1:65]
         padded = _randn(16, 1, 4, 64, 68, device=cuda).to(dtype)[..., :64]
         kd, vd = k.to(dtype), v.to(dtype)
         for q, match in ((shifted, "16-byte aligned"), (padded, "multiple of 16 bytes")):
-            if dtype == torch.bfloat16:
+            if dtype != torch.float32:
                 before = flash_attention_fwd.launches
                 with pytest.raises(ValueError, match=match):
                     flash_attention_fwd(q, kd, vd)
@@ -371,3 +427,37 @@ def test_flash_attention_bf16_refuses_what_tma_cannot_read(cuda):
             else:
                 err, scale = _err(flash_attention_fwd(q, kd, vd), attention_ref(q, kd, vd))
                 assert err <= 2e-3 * scale
+
+
+@pytest.mark.cuda
+def test_card_reference_attributes_every_kernel(cuda):
+    """The card's own kernel times for a captured LeNet step: every kernel
+    of the profile under a captured node, the per-class sums within 1% of
+    the profile's device total, the same kernels a run, name by name, as
+    the graph called as it is in a profile of its own,
+    every class present in the simulation, and the hand kernel's time in
+    ``dot``."""
+    from collections import Counter
+    from repro_torch import config as C
+    from repro_torch.core import H100, Simulator, card_reference
+    from repro_torch.core.correlate import profile_runs
+    from repro_torch.models.lenet import LeNet, sgd_step
+    cfg = C.get("lenet").smoke
+    model = LeNet(cfg, conv_algo="gemm", device=cuda)
+    x = _randn(20, 16, cfg.image_hw, cfg.image_hw, cfg.image_c, device=cuda)
+    y = torch.arange(16, device=cuda) % cfg.num_classes
+    params = model.param_dict()
+    sim = Simulator(hw=H100)
+    cap = sim.capture(lambda p, a, b: sgd_step(model, p, a, b, 0.05), params, x, y)
+    before = tiled_matmul.launches
+    ref = card_reference(cap, params, x, y, n=2)
+    assert tiled_matmul.launches > before
+    assert ref.clock == "device" and not ref.unattributed
+    items, _ = profile_runs(lambda: cap.graph(params, x, y), 2, cuda=True)
+    alone = {k: v / 2 for k, v in Counter(it[2] for it in items).items()}
+    assert ref.counts == alone
+    assert abs(sum(ref.values()) - ref.profile_seconds) <= 0.01 * ref.profile_seconds
+    assert ref["dot"] > 0
+    cr = sim.correlate(cap, ref)
+    simulated = {r.kernel for r in cr.rows if r.sim_seconds > 0}
+    assert {c for c, t in ref.items() if t > 0} <= simulated
