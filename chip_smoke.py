@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version on the card, then drives the port's
-two paths, each with every kernel's launch count set to 0 just before and
-read just after:
+each against its plain PyTorch version on the card (flash attention at head
+dims 16 to 256), then drives the port's three paths, each with every
+kernel's launch count set to 0 just before and read just after:
 
 * LeNet — ``repro_torch.lenet_repro.run``, the paper's experiments: train
   LeNet (full width, batch 128, 60 SGD steps), capture and simulate one
@@ -18,7 +18,17 @@ read just after:
   prompts for 16 new tokens, prefill attention in the flash kernel; then the
   kernel is held to its plain version on each layer's served q, k, v, the
   prefill against the plain decode attention at full width, and the
-  prefill and decode steps are captured and simulated on ``h100``.
+  prefill and decode steps are captured and simulated on ``h100``; the
+  llama3-8b smoke config (head_dim 16) and gemma3-12b at its full config
+  (48 layers, head_dim 256, window 1024 on 5 of every 6 layers) serve too;
+* training — qwen1.5-4b at its full config (40 layers, bf16 params with
+  fp32 master, m and v on the card) at train_4k's sequence length, batch
+  6 (the largest that fits), 3 AdamW steps through ``train_bundle``,
+  ``init_train_state`` and ``DataPipeline`` (phase 15); the step captured
+  from abstract inputs and simulated (16); 2 of its layers in fp32 through
+  the kernel against attention_ref in its place (17); and the ``Trainer``
+  with an injected failure, restoring from its checkpoint on the card, and
+  ``python -m repro_torch.launch.train --smoke`` (18).
 
 Then it times each kernel (fp32, bf16 and fp16), its plain version and the
 one PyTorch library call that computes the same function, beside the card's
@@ -61,6 +71,14 @@ RESNET_X, RESNET_W = (32, 56, 56, 64), (3, 3, 64, 64)
 
 # the serving path: llama3-8b FULL, batch 4, 2048-token prompts, 16 new tokens
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 16
+# gemma3-12b FULL on the same requests: 48 layers, d 256, window 1024 on 5
+# of every 6 layers
+GEMMA_ARCH = "gemma3-12b"
+# the training path: qwen1.5-4b FULL at train_4k's sequence length, bf16
+# params with fp32 state, 3 AdamW steps at batch 6, cut from train_4k's 256:
+# the largest that fits on an 80 GB H100 (66.65 GB at batch 1, 2.43 GB a
+# sequence; batch 6 peaks at 79.10 GB, see PERF.md)
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_BATCH = "qwen1.5-4b", 4096, 3, 6
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
@@ -125,8 +143,8 @@ def build_phase():
     # (UTMALDG) in every bf16 and fp16 flash instance, cp.async (LDGSTS) in
     # tiled_matmul
     counts = sass_counts("flash_attention", "attn_wgmma_kernel", ("HGMMA", "UTMALDG"))
-    check(len(counts) == 6, f"expected 6 wgmma flash instances (bf16 and fp16 at d 32, "
-                            f"64, 128), found {len(counts)}")
+    check(len(counts) == 12, f"expected 12 wgmma flash instances (bf16 and fp16 at d 16, "
+                             f"32, 64, 112, 128, 256), found {len(counts)}")
     check(all(c[op] > 0 for c in counts.values() for op in c),
           "a 16-bit flash instance has no HGMMA or no UTMALDG")
     sass_counts("tiled_matmul", "", ("LDGSTS",))
@@ -367,9 +385,9 @@ def winograd_phase():
 def flash_phase():
     """The flash kernel against attention_ref: the serving slice's shape
     (one llama3-8b layer's prefill attention, handed in as the model's
-    (b, s, heads, d) views), a ragged length, and the masks and head dims
-    llama3-8b does not use, at small sizes.  Each row is held to its own
-    scale (``_close_rows``)."""
+    (b, s, heads, d) views), a ragged length, the masks and head dims
+    llama3-8b does not use, at small sizes, and head dims 16, 112 and 256
+    in every dtype.  Each row is held to its own scale (``_close_rows``)."""
     import torch
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_fwd
     phase("5. flash_attention against attention_ref")
@@ -395,6 +413,23 @@ def flash_phase():
         ("non-causal window 64 softcap 30 d32 bf16", (1, 8, 2, 257, 257, 32),
          bf16, False, 64, 30.0),
     ]
+    # head dims 16 (every smoke config), 112 (zamba2-7b) and 256 (gemma3-12b):
+    # each in the three dtypes, causal and windowed, with and without the
+    # softcap, with ragged s and t
+    f32 = torch.float32
+    for d in (16, 112, 256):
+        w = 1024 if d == 256 else 64
+        cases += [
+            (f"d{d} bf16 causal ragged s=t=1000", (2, 16, 8, 1000, 1000, d), bf16, True, 0, 0.0),
+            (f"d{d} fp16 causal window {w} softcap 30 ragged s=t=1500", (1, 16, 8, 1500, 1500, d),
+             f16, True, w, 30.0),
+            (f"d{d} f32 non-causal s=200 t=333", (2, 4, 2, 200, 333, d), f32, False, 0, 0.0),
+            (f"d{d} bf16 non-causal window 64 softcap 30 s=300 t=277", (1, 8, 4, 300, 277, d),
+             bf16, False, 64, 30.0),
+            (f"d{d} f32 causal window 64 softcap 30 s=t=300", (1, 4, 4, 300, 300, d),
+             f32, True, 64, 30.0),
+            (f"d{d} fp16 causal ragged s=t=777", (1, 8, 2, 777, 777, d), f16, True, 0, 0.0),
+        ]
     slice_err = None
     for label, (b, h, kv, sq, t, d), dtype, causal, window, softcap in cases:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
@@ -404,7 +439,7 @@ def flash_phase():
         kw = dict(causal=causal, window=window, softcap=softcap)
         out = flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
-        tol = {bf16: BF16_TOL, f16: F16_TOL}.get(dtype, 2e-3)
+        tol = {bf16: BF16_TOL, f16: F16_TOL}.get(dtype, F32_TOL)
         ref = attention_ref(q, k, v, **kw)
         err, worst, ok = _close_rows(out, ref, tol)
         print(f"  {label}: max_abs_err {err:.3e}, worst row {worst:.3e} of its "
@@ -783,14 +818,18 @@ def step_phase():
     return {"step_ms": step_ms, "busy_ms": busy_ms, "one_step": one_step}
 
 
-def _profile(unit, fn, n, top=10):
+def _profile(unit, fn, n, top=10, host_ops=True, window=None):
     """Device time by kernel over ``n`` calls of ``fn`` under
     ``torch.profiler``, and the device's busy share of the host window.
-    Returns the device's busy ms a call (None if nothing was recorded)."""
+    Returns the device's busy ms a call (None if nothing was recorded).
+    ``host_ops=False`` records the device's activity only (a training step's
+    hundreds of thousands of host ops take the profiler minutes to sort).
+    A dict passed as ``window`` receives the host window a call, in ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -806,6 +845,8 @@ def _profile(unit, fn, n, top=10):
         print("  torch.profiler recorded no device time")
         return None
     busy_us = sum(r[0] for r in rows)
+    if window is not None:
+        window["ms"] = window_us / n / 1e3
     print(f"  profiler: device busy {busy_us / n / 1e3:.3f} ms a {unit}, "
           f"{100 * busy_us / window_us:.1f}% of the {window_us / n / 1e3:.3f} ms "
           f"host window, {sum(r[2] for r in rows) / n:.0f} device kernels a "
@@ -846,11 +887,12 @@ def _decode_vs_prefill(model, params, prompts):
     return _rel(last, full), full
 
 
-def _flash_probe(plain):
+def _flash_probe(plain, tol=BF16_TOL):
     """A dispatch mode over the model's ``repro_torch::flash_attention``
-    calls, on the q, k, v the served model really makes.  ``plain=False``:
+    calls, on the q, k, v the model really makes (in a training step, the
+    backward's recompute too).  ``plain=False``:
     run the kernel, hold each call's output to ``attention_ref`` row by row
-    (``.rows``), and note how hard the layer's attention is (``.hardness``:
+    within ``tol`` (``.rows``), and note how hard the layer's attention is (``.hardness``:
     the spread of q.k/sqrt(d) and the mean largest probability, over the
     last 128 queries of head 0).  ``plain=True``: answer every call with
     ``attention_ref``, so the model runs without the kernel."""
@@ -874,11 +916,12 @@ def _flash_probe(plain):
             if plain:
                 return ref
             out = func(*args, **kwargs)
-            self.rows.append(_close_rows(out, ref, BF16_TOL))
+            self.rows.append(_close_rows(out, ref, tol))
             s, d = q.shape[2], q.shape[3]
-            sc = (q[:, 0, -128:].float() @ k[:, 0].float().transpose(-1, -2)) / d ** 0.5
+            n = min(128, s)
+            sc = (q[:, 0, -n:].float() @ k[:, 0].float().transpose(-1, -2)) / d ** 0.5
             sc = sc.masked_fill(torch.arange(s, device=q.device)[None, :]
-                                > torch.arange(s - 128, s, device=q.device)[:, None],
+                                > torch.arange(s - n, s, device=q.device)[:, None],
                                 float("-inf"))
             p_max = torch.softmax(sc, -1).amax(-1).mean()
             self.hardness.append((float(sc[sc.isfinite()].std()), float(p_max)))
@@ -903,8 +946,9 @@ def serve_phase():
     from repro_torch.models import build_model
     from repro_torch.runtime.server import Server, ServeStats
     from repro_torch.runtime.steps import decode_step, prefill_step
-    phase(f"9. main path: serve {SERVE_ARCH} FULL, batch {SERVE_BATCH}, prompt "
-          f"{SERVE_PROMPT}, {SERVE_NEW} new tokens")
+    phase(f"9. main path: serve {SERVE_ARCH} smoke and FULL, batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, {SERVE_NEW} new tokens; then {GEMMA_ARCH} FULL")
+    _serve_smoke()
     torch.cuda.reset_peak_memory_stats()
     for kern in (tiled_matmul, winograd_conv, winograd_tiles, flash_attention_fwd):
         kern.launches = 0
@@ -1004,7 +1048,92 @@ def serve_phase():
     check(rel_f32 <= BF16_TOL,
           f"fp32 decode vs prefill relative error {rel_f32} > {BF16_TOL}")
     res["warm"] = warm
+    res["gemma"] = _serve_gemma()
+    launches["flash_attention_gemma"] = res["gemma"]["launches"]
     return res, launches
+
+
+def _serve_smoke():
+    """The llama3-8b smoke config served on the card (``head_dim`` 16), as
+    ``python -m repro_torch.launch.serve --arch llama3-8b --smoke`` runs it,
+    its flash calls held to attention_ref."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch import serve
+    from repro_torch.runtime.steps import prefill_step
+    flash_attention_fwd.launches = 0
+    res = serve.run(SERVE_ARCH, smoke=True, device="cuda")
+    launches = flash_attention_fwd.launches
+    torch.cuda.synchronize()
+    cfg, tokens = res["model"].cfg, res["tokens"]
+    probe = _flash_probe(plain=False)
+    with probe:
+        prefill_step(res["model"], res["params"], {"tokens": res["prompts"]})
+    worst = max(r[1] for r in probe.rows)
+    print(f"  {SERVE_ARCH} smoke (head_dim {cfg.resolved_head_dim}, {cfg.num_layers} layers, "
+          f"{cfg.dtype}): generated {tokens.shape}, flash launches {launches}; its calls "
+          f"on the prefill's q, k, v: worst row {worst:.3e} (tol {BF16_TOL})")
+    check(launches >= cfg.num_layers and tokens.shape[0] == 4,
+          f"the smoke serve launched flash {launches} times, tokens {tokens.shape}")
+    check(all(r[2] for r in probe.rows), f"flash disagrees on the smoke serve: {worst}")
+
+
+def _serve_gemma():
+    """gemma3-12b FULL (bf16, random weights from seed 0) serves the same
+    batch of 2048-token prompts for 16 new tokens through
+    ``launch.serve.run``; then the bf16 kernel is held to attention_ref on
+    every layer's served q, k, v, window layers and global layers apart.
+    Its weights are freed before returning."""
+    import gc
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch import serve
+    from repro_torch.runtime.server import ServeStats
+    from repro_torch.runtime.steps import prefill_step
+    flash_attention_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.run(GEMMA_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    max_new=SERVE_NEW, device="cuda")
+    launches = flash_attention_fwd.launches
+    torch.cuda.synchronize()
+    server, model, params = res["server"], res["model"], res["params"]
+    cfg, tokens = model.cfg, res["tokens"]
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    first = server.stats
+    server.stats = ServeStats()
+    server.generate({"tokens": res["prompts"]}, max_new_tokens=SERVE_NEW)
+    warm = server.stats
+    print(f"  {GEMMA_ARCH} FULL ({cfg.num_layers} layers, head_dim {cfg.resolved_head_dim}, "
+          f"window {cfg.window_size} on {cfg.global_every - 1} of every {cfg.global_every} "
+          f"layers, {weights_gb:.2f} GB of bf16 weights): flash launches {launches}; "
+          f"prefill {first.prefill_s * 1e3:.1f} ms first, {warm.prefill_s * 1e3:.1f} ms warm; "
+          f"decode {warm.decode_tok_per_s:.1f} tok/s warm; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (with {SERVE_ARCH}'s weights "
+          f"resident)")
+    check(launches >= cfg.num_layers, f"{GEMMA_ARCH} launched flash {launches} times, "
+                                      f"expected >= {cfg.num_layers}")
+    check(tokens.shape[0] == SERVE_BATCH and 0 <= tokens.min() and tokens.max() < cfg.vocab_size,
+          f"{GEMMA_ARCH} generated tokens {tokens.shape}")
+    probe = _flash_probe(plain=False)
+    with probe:
+        prefill_step(model, params, {"tokens": res["prompts"]})
+    check(len(probe.rows) == cfg.num_layers, f"probe saw {len(probe.rows)} calls")
+    kinds = {"window": [], "global": []}
+    for idx, row in enumerate(probe.rows):
+        kinds["global" if model._window_for(idx) == 0 else "window"].append(row)
+    for kind, rows in kinds.items():
+        print(f"  {GEMMA_ARCH} flash on the served q, k, v, {len(rows)} {kind} layers: "
+              f"max_abs_err {max(r[0] for r in rows):.3e}, worst row "
+              f"{max(r[1] for r in rows):.3e} (tol {BF16_TOL})")
+        check(rows and all(r[2] for r in rows),
+              f"flash disagrees with attention_ref on {GEMMA_ARCH}'s {kind} layers")
+    out = {"launches": launches, "prefill_ms": warm.prefill_s * 1e3,
+           "decode_tok_per_s": warm.decode_tok_per_s, "weights_gb": weights_gb}
+    del res, server, model, params, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _analytic_dot_flops(cfg, b, n, t):
@@ -1115,6 +1244,8 @@ def flash_timing_phase(launches, flash_err):
           f"{t32:.4f} ms ({f32_flops / t32 / 1e9:.1f} TFLOP/s; {_fmt_ms(t32_d)} on the "
           f"device), SDPA {t32_l:.4f} ms, bound {b32_bound * 1e3:.2f} us ({b32_by}, "
           f"fp32 at 67 TFLOP/s)")
+    del q, k, v, q32, k32, v32
+    head_dims = _flash_head_dim_timing(gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
@@ -1127,7 +1258,64 @@ def flash_timing_phase(launches, flash_err):
                      "bound_ms": bound, "bound_by": by},
             "fp32": {"ms": t32, "device_ms": t32_d, "library_ms": t32_l,
                      "bound_ms": b32_bound, "bound_by": b32_by,
-                     "unit": f"b{b32} h{h} kv{kv} s=t={s} d{d} fp32 causal"}}
+                     "unit": f"b{b32} h{h} kv{kv} s=t={s} d{d} fp32 causal"},
+            "head_dims": head_dims}
+
+
+def _attn_flops(b, h, s, t, d, causal, window):
+    """4 d FLOPs (q.k and p.v) for every (query, key) pair the masks let
+    through, counted exactly."""
+    pairs = 0
+    for qp in range(s):
+        hi = min(qp + 1, t) if causal else t
+        lo = max(0, qp - window + 1) if window > 0 else 0
+        pairs += max(hi - lo, 0)
+    return 4.0 * b * h * pairs * d
+
+
+def _flash_head_dim_timing(gen):
+    """The bf16 kernel at the head dims this slice added, beside SDPA and
+    the bound: gemma3-12b's layer (b 4, h 16, kv 8, s = t = 2048, d 256)
+    causal and with its window of 1024, zamba2-7b's attention (h 32, kv 32,
+    d 112) and a d 16 layer (llama3-8b's heads at the smoke head dim)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    out = {}
+    for label, h, kv, d, window in ((f"{GEMMA_ARCH} layer, causal", 16, 8, 256, 0),
+                                    (f"{GEMMA_ARCH} window layer, window 1024", 16, 8, 256, 1024),
+                                    ("zamba2-7b attention, causal", 32, 32, 112, 0),
+                                    ("d16, causal", 32, 8, 16, 0)):
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2) for n in (h, kv, kv))
+        flops = _attn_flops(b, h, s, s, d, True, window)
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        bound, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+
+        def kern():
+            return flash_attention_fwd(q, k, v, causal=True, window=window)
+        if window:
+            qp = torch.arange(s, device="cuda")[:, None]
+            kp = torch.arange(s, device="cuda")[None, :]
+            mask = (kp <= qp) & (qp - kp < window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        t_k, t_kd = _time_ms(kern), _device_ms(kern)
+        t_l, t_ld = _time_ms(sdpa), _device_ms(sdpa)
+        print(f"  flash_attention {label}: b{b} h{h} kv{kv} s=t={s} d{d} bf16: kernel "
+              f"{t_k:.4f} ms ({_fmt_ms(t_kd)} on the device, {flops / t_k / 1e9:.1f} TFLOP/s), "
+              f"SDPA {t_l:.4f} ms ({_fmt_ms(t_ld)} on the device), bound "
+              f"{bound * 1e3:.2f} us ({by})")
+        out[label] = {"ms": t_k, "device_ms": t_kd, "library_ms": t_l,
+                      "library_device_ms": t_ld, "bound_ms": bound, "bound_by": by,
+                      "unit": f"b{b} h{h} kv{kv} s=t={s} d{d} bf16 causal window {window}"}
+        del q, k, v
+    return out
 
 
 def _graph_alone(cap, args, n):
@@ -1305,6 +1493,372 @@ def power_phase(lenet, step, serve_res, serve_sim, idle_before):
     return out
 
 
+def _train_cfg(model_cfg, batch, **train):
+    from repro_torch import config as C
+    return C.RunConfig(model=model_cfg, shape=C.ShapeConfig("train_4k_cut", TRAIN_SEQ, batch,
+                                                            "train"),
+                       mesh=C.SMOKE_MESH, train=C.TrainConfig(**train))
+
+
+def _slots(tree):
+    """A strided sample (about 1024 elements) of every leaf, and of every
+    layer's slot of the stacked ``layers`` leaves: enough to tell that each
+    one moved, a few MB in all."""
+    from repro_torch.optim import tree_leaves
+    out = []
+    for key, sub in sorted(tree.items()):
+        for leaf in tree_leaves(sub):
+            for row in (leaf if key == "layers" else [leaf]):
+                flat = row.reshape(-1)
+                out.append(flat[::max(1, flat.numel() // 1024)].clone())
+    return out
+
+
+def train_phase():
+    """The training path: qwen1.5-4b FULL (40 layers, bf16 params, fp32
+    master, m and v on the card) at train_4k's sequence length, through
+    ``init_train_state``, ``train_bundle`` and ``DataPipeline`` as the
+    trainer drives them, without its checkpoints (the forced final save
+    would write 63 GB), at ``TRAIN_BATCH``; the step's peak must stay
+    under the card's memory.  Three steps: the first cold, the second timed
+    warm, the third under ``torch.profiler``; then, with the state freed,
+    the bf16 kernel held to ``attention_ref`` at the step's attention shape,
+    and attention's backward alone at that shape."""
+    import gc
+
+    import torch
+    from repro_torch import config as C
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime.steps import init_train_state, train_bundle
+    cfg = C.get(TRAIN_ARCH).full
+    phase(f"15. main path: train {TRAIN_ARCH} FULL ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}), seq {TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory in use before: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    train_cfg = dict(warmup_steps=2, total_steps=100)
+    t0 = time.perf_counter()
+    state = init_train_state(_train_cfg(cfg, 1, **train_cfg), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    state_gb = sum(t.numel() * t.element_size() for part in state[1:]
+                   for t in tree_leaves(part)) / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    print(f"  init_train_state: {n_params / 1e9:.3f} B parameters, {state_gb:.2f} GB of "
+          f"params, master, m and v on the card, {time.perf_counter() - t0:.1f}s")
+    total = torch.cuda.mem_get_info()[1]
+    batch = TRAIN_BATCH
+    print(f"  batch {batch} (train_4k's {C.TRAIN_4K.global_batch} cut); the card holds "
+          f"{total / 1e9:.2f} GB")
+
+    rc = _train_cfg(cfg, batch, **train_cfg)
+    step_fn = train_bundle(rc).fn
+    master0, params0 = _slots(state.master), _slots(state.params)
+    for kern in (tiled_matmul, winograd_conv, winograd_tiles, flash_attention_fwd):
+        kern.launches = 0
+    data = DataPipeline(batches_for(cfg, rc.shape, seed=0), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times, busy_ms = [], [], None
+    try:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i < TRAIN_STEPS - 1:
+                state, m = step_fn(state, next(data))
+                m = {k: float(v) for k, v in m.items()}
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            else:
+                box = {}
+
+                def last():
+                    box["state"], box["m"] = step_fn(state, next(data))
+                win = {}
+                busy_ms = _profile("train step", last, 1, top=12, host_ops=False, window=win)
+                state, m = box.pop("state"), {k: float(v) for k, v in box.pop("m").items()}
+                times.append(win.get("ms", float("nan")) / 1e3)
+            metrics.append(m)
+            print(f"  step {i + 1}: loss {m['loss']:.4f}, ce {m['ce']:.4f}, grad_norm "
+                  f"{m['grad_norm']:.4f}, lr {m['lr']:.3e}, {times[-1]:.3f}s")
+    finally:
+        data.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"tiled_matmul": tiled_matmul.launches, "winograd_conv": winograd_conv.launches,
+                "winograd_tiles": winograd_tiles.launches,
+                "flash_attention": flash_attention_fwd.launches}
+    warm_s = times[1]
+    tok_s = batch * TRAIN_SEQ / warm_s
+    # the profiled step's host window, from its launch to its last kernel
+    busy_share = None if busy_ms is None else busy_ms / 1e3 / times[-1]
+    print(f"  main-path launches: {json.dumps(launches)} "
+          f"({launches['flash_attention'] / TRAIN_STEPS:.0f} flash launches a step)")
+    print(f"  batch {batch} x {TRAIN_SEQ}: warm step {warm_s * 1e3:.1f} ms, "
+          f"{tok_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB; device busy "
+          f"{_fmt_ms(busy_ms)} of the profiled step's {times[-1] * 1e3:.1f} ms"
+          + ("" if busy_share is None else f" ({busy_share * 100:.1f}%)"))
+    print(f"  first loss {metrics[0]['loss']:.4f} beside ln({cfg.vocab_size}) = "
+          f"{math.log(cfg.vocab_size):.2f} (the reference's init: no band set)")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics),
+          f"a loss or grad norm is not finite: {metrics}")
+    check(peak_gb * 1e9 < total, f"the step's peak {peak_gb:.2f} GB is over the card's "
+                                 f"{total / 1e9:.2f} GB")
+    check(launches["flash_attention"] == 2 * cfg.num_layers * TRAIN_STEPS,
+          f"flash launched {launches['flash_attention']} times in {TRAIN_STEPS} steps, "
+          f"expected {2 * cfg.num_layers} a step (a forward and a recompute a layer)")
+    moved = [sum(bool((a != b).any()) for a, b in zip(before, _slots(after)))
+             for before, after in ((master0, state.master), (params0, state.params))]
+    print(f"  moved after {TRAIN_STEPS} steps: {moved[0]} of {len(master0)} master slots, "
+          f"{moved[1]} of {len(params0)} bf16 param slots (every leaf, layer by layer)")
+    check(moved[0] == len(master0) and moved[1] == len(params0),
+          "a parameter did not move")
+
+    # attention's backward alone: the flash op's recompute through
+    # attention_ref and its gradients, at one layer's shape, times the layers
+    del state, master0, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    hd = cfg.resolved_head_dim
+    q, k, v = (torch.randn(batch, TRAIN_SEQ, n, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2).requires_grad_()
+               for n in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    # the bf16 kernel at the step's attention shape against attention_ref,
+    # one sequence at a time (its fp32 scores are 1.3 GB a sequence)
+    with torch.no_grad():
+        out = flash_attention_fwd(q, k, v, causal=True)
+        rows = [_close_rows(out[i:i + 1], attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                                        causal=True), BF16_TOL)
+                for i in range(batch)]
+    flash_err = max(r[0] for r in rows)
+    print(f"  flash_attention_fwd at q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal "
+          f"against attention_ref: max abs error {flash_err:.3e}, worst row "
+          f"{max(r[1] for r in rows):.3e} of its max |ref| (tol {BF16_TOL})")
+    check(all(r[2] for r in rows), f"flash disagrees with attention_ref at the train "
+                                   f"step's shape: worst row {max(r[1] for r in rows)} > "
+                                   f"{BF16_TOL}")
+    out = flash_attention(q, k, v, causal=True)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    bwd_ms = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
+                      reps=3, warmup=1)
+    bwd_step_ms = bwd_ms * cfg.num_layers
+    print(f"  attention's backward (recompute through attention_ref, fp32 scores, in "
+          f"pieces of 8 heads): {bwd_ms:.2f} ms a layer at q {tuple(q.shape)}, "
+          f"{bwd_step_ms:.1f} ms a step ({cfg.num_layers} layers), "
+          f"{100 * bwd_step_ms / (warm_s * 1e3):.1f}% of the warm step")
+    del q, k, v, out, g
+    return {"batch": batch, "peak_gb": peak_gb, "warm_ms": warm_s * 1e3, "tok_s": tok_s,
+            "busy_ms": busy_ms, "profiled_ms": times[-1] * 1e3, "launches": launches,
+            "attn_bwd_ms_step": bwd_step_ms, "first_loss": metrics[0]["loss"],
+            "state_gb": state_gb, "flash_max_abs_err": flash_err, "train_cfg": train_cfg}
+
+
+def _train_dot_flops(cfg, b, s):
+    """The products of one captured train step (see tests/test_torch_train.py):
+    per layer the projections 4 times (forward, recompute, two gradients)
+    less the down projection's recompute, 10 attention products, and the
+    head 4 times."""
+    from repro_torch.models.layers import pad_vocab
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    n = b * s
+    proj = 2 * n * d * (h + 2 * kv) * hd + 2 * n * h * hd * d + 3 * 2 * n * d * cfg.d_ff
+    down = 2 * n * cfg.d_ff * d
+    att = 2 * b * h * s * s * hd
+    return cfg.num_layers * (4 * proj - down + 10 * att) + 4 * 2 * n * d * pad_vocab(cfg.vocab_size)
+
+
+def train_sim_phase(train):
+    """Phase 10's view of the training path: the full-width train step at
+    the batch phase 15 ran, captured from abstract inputs (fake tensors on
+    the card: nothing is allocated) and simulated on the ``h100`` spec,
+    beside the measured warm step."""
+    import torch
+    from repro_torch import config as C
+    from repro_torch.core import H100, Simulator
+    from repro_torch.core.capture import capture_bundle
+    from repro_torch.lenet_repro import summary_lines
+    from repro_torch.runtime.steps import train_bundle
+    cfg = C.get(TRAIN_ARCH).full
+    b = train["batch"]
+    phase(f"16. capture + simulate the full-width {TRAIN_ARCH} train step (h100), beside "
+          f"the measured one")
+    rc = _train_cfg(cfg, b, **train["train_cfg"])
+    t0 = time.perf_counter()
+    cap = capture_bundle(train_bundle(rc), name="train", device="cuda")
+    cap_s = time.perf_counter() - t0
+    m = cap.module
+    dot_flops = sum(sc * m.op_flops(c, o)["mxu"] for o, c, sc in m.walk_entry())
+    want = _train_dot_flops(cfg, b, TRAIN_SEQ)
+    n_flash = sum(n.target is torch.ops.repro_torch.flash_attention.default
+                  for n in cap.graph.graph.nodes)
+    t0 = time.perf_counter()
+    rep = Simulator(hw=H100).performance(cap)
+    sim_s = time.perf_counter() - t0
+    print(f"  captured: {len(m.comp(m.entry).ops)} ops in {cap_s:.1f}s, {n_flash} flash "
+          f"nodes, dot FLOPs {dot_flops:.4e} (analytic {want:.4e}); simulated in "
+          f"{sim_s:.1f}s")
+    for line in summary_lines(f"{TRAIN_ARCH} train b{b} s{TRAIN_SEQ}", rep):
+        print(line)
+    secs = rep.summary()["total_seconds"]
+    print(f"  modeled train step {secs * 1e3:.1f} ms against {train['warm_ms']:.1f} ms "
+          f"measured warm ({secs * 1e3 / train['warm_ms']:.2f}x)")
+    check(dot_flops == want, f"the train capture counts {dot_flops} dot FLOPs, expected {want}")
+    check(n_flash == 2 * cfg.num_layers, f"{n_flash} flash nodes, expected "
+                                         f"{2 * cfg.num_layers}")
+    check(secs > 0 and math.isfinite(secs), f"bad simulated train step {secs}")
+    return {"sim_ms": secs * 1e3, "capture_s": cap_s, "ops": len(m.comp(m.entry).ops)}
+
+
+# the fp32 step with the kernel against the step with attention_ref in its
+# place, at full width (2 layers): relative to the plain step's loss, grad
+# norm and whole gradient (read from the first moment: after one step m is
+# (1 - beta1) times the clipped gradient), and to the norm of its update of
+# the master weights.  AdamW's first step moves a weight by lr * g / (|g| +
+# eps): where |g| is near eps (most weights here: the clipped gradient of
+# 0.94 B weights has norm 1) the update follows small differences of g, and
+# a weight whose g lies within its rounding of zero moves by up to 2 lr
+# between two correct runs (3.35e-3 of the update's norm on an H100).  So
+# the whole update has the loose limit, and the tight one holds it where it
+# is lr * sign(g) within 0.1%: |g| >= 1e3 eps, with the runs' gradients
+# within an eighth of each other, which must be nearly every such weight.
+# There the two updates of a weight differ by at most 1.1e-4 lr (the eps
+# term: 1e-3 * (1/8) / (1 + 1/8)) and one ulp of the master it lands on
+# (about 1e-5 lr), so within 2e-4 of the update's norm.  Every kernel call
+# of the step is held to attention_ref on its own inputs, row by row,
+# within F32_TOL as in phase 5
+WITNESS_LOSS_TOL, WITNESS_GNORM_TOL = 1e-4, 1e-3
+WITNESS_UPDATE_TOL, WITNESS_SIGN_UPDATE_TOL, WITNESS_MIN_HELD = 1e-2, 2e-4, 0.99
+
+
+def train_witness_phase():
+    """Correctness at full width: 2 layers of qwen1.5-4b FULL in fp32, one
+    train step at seq 4096 twice from the same weights and batch, once
+    through the kernel and once with attention_ref answering every flash
+    call (the plain witness, the recompute in the backward included)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import config as C
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime.steps import init_train_state, train_bundle
+    cfg = dataclasses.replace(C.get(TRAIN_ARCH).full, num_layers=2, dtype="float32")
+    phase(f"17. {TRAIN_ARCH} FULL width, 2 layers, fp32: one train step through the "
+          f"kernel against one with attention_ref in its place")
+    rc = _train_cfg(cfg, 1, warmup_steps=1, total_steps=100)
+    batch = shard_batch(next(batches_for(cfg, rc.shape, seed=2)), "cuda")
+    flat = lambda tree: torch.cat([t.reshape(-1) for t in tree_leaves(tree)])
+    runs = []
+    for plain in (False, True):
+        state = init_train_state(rc, seed=0, device="cuda")
+        before = flat(state.master)
+        launches = flash_attention_fwd.launches
+        probe = _flash_probe(plain=plain, tol=F32_TOL)
+        with probe:
+            state, m = train_bundle(rc).fn(state, batch)
+        torch.cuda.synchronize()
+        if not plain:
+            rows = probe.rows
+        update = flat(state.master) - before
+        runs.append(({k: float(v) for k, v in m.items()}, update, flat(state.m),
+                     flash_attention_fwd.launches - launches))
+        del state, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    (mk, uk, gk, lk), (mp, up, gp, lp) = runs
+    sign = gp.abs() >= 1e3 * rc.train.eps * (1 - rc.train.beta1)
+    held = sign & ((gk - gp).abs() * 8 <= gp.abs())
+    share = float(held.sum() / sign.sum())
+    rel = {"loss": abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
+           "grad_norm": abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"],
+           "grad": float((gk - gp).norm() / gp.norm()),
+           "update": float((uk - up).norm() / up.norm()),
+           "sign_update": float((uk - up)[held].norm() / up[held].norm())}
+    print(f"  kernel: loss {mk['loss']:.6f}, grad_norm {mk['grad_norm']:.6f}, {lk} flash "
+          f"launches, each held to attention_ref on its inputs: worst row "
+          f"{max(r[1] for r in rows):.3e} (tol {F32_TOL}); attention_ref: loss "
+          f"{mp['loss']:.6f}, grad_norm {mp['grad_norm']:.6f}, {lp} launches")
+    print(f"  relative differences: loss {rel['loss']:.2e} (tol {WITNESS_LOSS_TOL}), "
+          f"grad_norm {rel['grad_norm']:.2e} and gradient {rel['grad']:.2e} (tol "
+          f"{WITNESS_GNORM_TOL}), master update {rel['update']:.2e} of its norm (tol "
+          f"{WITNESS_UPDATE_TOL}), largest difference "
+          f"{float((uk - up).abs().max()) / mk['lr']:.2e} lr; where |g| >= 1e3 eps "
+          f"({float(sign.float().mean()):.3e} of the weights) "
+          f"{rel['sign_update']:.2e} (tol {WITNESS_SIGN_UPDATE_TOL}) over the {share:.7f} "
+          f"of them with the gradients within an eighth (at least {WITNESS_MIN_HELD})")
+    check(lk == 2 * cfg.num_layers and lp == 0 and len(rows) == lk,
+          f"flash launches: {lk} with the kernel ({len(rows)} probed), {lp} in the plain "
+          f"witness")
+    check(all(r[2] for r in rows), "a flash call of the fp32 step disagrees with "
+                                   "attention_ref on its inputs")
+    check(rel["loss"] <= WITNESS_LOSS_TOL and rel["grad_norm"] <= WITNESS_GNORM_TOL
+          and rel["grad"] <= WITNESS_GNORM_TOL and rel["update"] <= WITNESS_UPDATE_TOL
+          and rel["sign_update"] <= WITNESS_SIGN_UPDATE_TOL and share >= WITNESS_MIN_HELD,
+          f"the kernel's fp32 train step disagrees with the plain one: {rel}, the "
+          f"gradients within an eighth for {share} of the weights with |g| >= 1e3 eps")
+    rel["held"] = share
+    del runs, uk, up, gk, gp, sign, held, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rel
+
+
+def trainer_phase():
+    """The trainer on the card: the qwen1.5-4b smoke config, 6 steps with a
+    checkpoint every 2 and one injected NodeFailure at step 3, so checkpoint,
+    restore and continue all run on cuda; then ``python -m
+    repro_torch.launch.train --smoke`` as a user runs it."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import config as C
+    from repro_torch.checkpoint.store import list_steps
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.runtime.failure import FailurePlan
+    from repro_torch.runtime.trainer import Trainer
+    phase(f"18. the trainer on the card: {TRAIN_ARCH} smoke, a failure, restore, continue")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        rc = C.RunConfig(model=C.get(TRAIN_ARCH).smoke,
+                         shape=C.ShapeConfig("smoke_train", 64, 4, "train"), mesh=C.SMOKE_MESH,
+                         train=C.TrainConfig(total_steps=6, warmup_steps=2, checkpoint_every=2,
+                                             keep_checkpoints=2, learning_rate=1e-3,
+                                             checkpoint_dir=os.path.join(tmp, "trainer")))
+        flash_attention_fwd.launches = 0
+        report = Trainer(rc, use_mesh=False, failure_plan=FailurePlan(failures={3: 1}),
+                         device="cuda").train()
+        steps = list_steps(rc.train.checkpoint_dir)
+        print(f"  Trainer: {report.steps_done} steps, {report.restarts} restart, "
+              f"{report.checkpoints} checkpoints (kept: {steps}), losses "
+              f"{[round(x, 4) for x in report.losses]}, flash launches "
+              f"{flash_attention_fwd.launches}")
+        check(report.restarts == 1 and report.steps_done >= 6 and steps[-1] == 6,
+              f"the trainer did not restore and finish: {report}")
+        check(all(math.isfinite(x) for x in report.losses), "a trainer loss is not finite")
+        check(flash_attention_fwd.launches > 0, "the trainer never launched flash")
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                              TRAIN_ARCH, "--smoke", "--steps", "4", "--ckpt-dir",
+                              os.path.join(tmp, "cli")],
+                             capture_output=True, text=True, env=env, timeout=600)
+        print(f"  python -m repro_torch.launch.train --arch {TRAIN_ARCH} --smoke --steps 4: "
+              f"{cli.stdout.strip()}")
+        check(cli.returncode == 0 and cli.stdout.startswith("done: steps=4"),
+              f"launch.train failed: {cli.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+
+
 # the debugger's tolerance for one fp32 LeNet step against float64: both the
 # absolute and the relative error (to the node's largest output) must exceed
 # their bound for a node to diverge
@@ -1399,10 +1953,24 @@ def main() -> int:
         kernels.append(flash_timing_phase(serve_launches, flash_err))
         correlation = correlation_phase(lenet, step, res, serve_sim)
         power = power_phase(lenet, step, res, serve_sim, idle)
+        gemma = res["gemma"]
         del res, serve_sim
         analysis_phase(lenet)
+        train = train_phase()
+        train["sim"] = train_sim_phase(train)
+        train["witness"] = train_witness_phase()
+        trainer_phase()
+        flash = kernels[-1]
+        flash["launches_by_path"] = {
+            f"serve {SERVE_ARCH} FULL": serve_launches["flash_attention"],
+            f"serve {GEMMA_ARCH} FULL": gemma["launches"],
+            f"train {TRAIN_ARCH} FULL ({TRAIN_STEPS} steps)":
+                train["launches"]["flash_attention"]}
+        flash["attention_backward_ms_per_train_step"] = train["attn_bwd_ms_step"]
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_analysis.json").write_text(json.dumps(
-            {"correlation": correlation, "power": power}, indent=1))
+            {"correlation": correlation, "power": power, "gemma": gemma, "train": train},
+            indent=1))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -7,14 +7,17 @@ Examples::
     python -m repro_torch.analysis lenet                 # on the card
     python -m repro_torch.analysis lenet --device cpu --json -
     python -m repro_torch.analysis lenet --full --hw h100 --chrome-trace /tmp/lenet.json
+    python -m repro_torch.analysis qwen1.5-4b --seq-len 128 --batch 4 --device cpu
 
 The port of ``python -m repro.analysis``: captures the architecture's train
 step (smoke config by default) from example tensors on ``--device`` (cuda
 unless ``--device cpu`` is given; nothing runs on them), performance-
 simulates it, and prints the phase table, the ASCII timeline and the
 HBM-channel report; optionally dumps chrome://tracing / JSON artifacts.
-Only LeNet's train step (``models/lenet.py::sgd_step``) is ported; any other
-registered arch exits 2.  The reference's ``--timelapse``, ``--manifest``,
+LeNet's step is ``models/lenet.py::sgd_step``; a decoder LM's is
+``runtime/steps.py::train_bundle`` at ``--seq-len`` x ``--batch``, captured
+from abstract inputs (``core/capture.py::capture_bundle``), so ``--full``
+allocates no weights.  The reference's ``--timelapse``, ``--manifest``,
 ``--doctor`` and ``--spans`` wait for the port of ``repro.obs``' time-lapse,
 manifest and doctor modules.
 """
@@ -33,6 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 "(see repro_torch.configs)")
     p.add_argument("--full", action="store_true",
                    help="use the full-size config instead of the smoke config")
+    p.add_argument("--seq-len", type=int, default=64,
+                   help="sequence length of a decoder LM's train step")
     p.add_argument("--batch", type=int, default=4, help="global batch size")
     p.add_argument("--buckets", type=int, default=120,
                    help="number of time buckets (default 120)")
@@ -85,8 +90,17 @@ def _lenet_step(full: bool, batch: int, device):
     return step, (model.param_dict(), images, labels)
 
 
-#: the train steps the port has, by arch
-STEPS = {"lenet": _lenet_step}
+def _lm_capture(arch: str, full: bool, batch: int, seq_len: int, device):
+    """A decoder LM's train step (``train_bundle``), captured from abstract
+    inputs on ``device``."""
+    from repro_torch import config as C
+    from repro_torch.core.capture import capture_bundle
+    from repro_torch.runtime.steps import train_bundle
+    entry = C.get(arch)
+    shape = C.ShapeConfig("analysis", seq_len=seq_len, global_batch=batch, kind="train")
+    rc = C.RunConfig(model=entry.full if full else entry.smoke, shape=shape,
+                     mesh=C.SMOKE_MESH)
+    return capture_bundle(train_bundle(rc), name=f"{arch}_train", device=device)
 
 
 def main(argv=None) -> int:
@@ -109,16 +123,15 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     try:
-        C.get(args.arch)
+        entry = C.get(args.arch)
     except KeyError as e:
         print(e.args[0], file=sys.stderr)
         return 2
-    if args.arch not in STEPS:
-        print(f"{args.arch}: its train step is not ported yet; ported: "
-              f"{sorted(STEPS)}", file=sys.stderr)
-        return 2
     if args.batch <= 0:
         print(f"--batch must be positive, got {args.batch}", file=sys.stderr)
+        return 2
+    if args.seq_len <= 0:
+        print(f"--seq-len must be positive, got {args.seq_len}", file=sys.stderr)
         return 2
     try:
         device = resolve_device(args.device)
@@ -143,12 +156,17 @@ def main(argv=None) -> int:
                     topology_model=not args.no_topology,
                     scheduler="legacy" if args.legacy_scheduler
                     else "batched")
+    lm = entry.full.family != "conv"
     print(f"capturing {args.arch} train step "
-          f"(batch={args.batch}, {args.hw}, example tensors on {device}) ...",
-          file=sys.stderr)
-    step, example = STEPS[args.arch](args.full, args.batch, device)
-    mark("setup")
-    cap = sim.capture(step, *example, name=f"{args.arch}_train")
+          f"({f'seq={args.seq_len}, ' if lm else ''}batch={args.batch}, {args.hw}, "
+          f"example tensors on {device}) ...", file=sys.stderr)
+    if lm:
+        mark("setup")
+        cap = _lm_capture(args.arch, args.full, args.batch, args.seq_len, device)
+    else:
+        step, example = _lenet_step(args.full, args.batch, device)
+        mark("setup")
+        cap = sim.capture(step, *example, name=f"{args.arch}_train")
     mark("capture")
     rep = sim.performance(cap)
     mark("simulate")

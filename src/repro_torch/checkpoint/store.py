@@ -75,14 +75,16 @@ def _unflatten(like: Any, leaves: List[Any]) -> Any:
 def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     """A leaf as the numpy array ``arrays.npz`` holds, and its dtype name."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        # a copy even of a host tensor: the writer thread reads it while the
+        # next step updates the state in place
+        t = leaf.detach().to("cpu", copy=True)
         if t.dtype in _RAW:
             ints, name = _RAW[t.dtype]
             arr = t.contiguous().view(torch.int16 if ints is np.int16 else torch.uint8).numpy()
             return arr.view(np.dtype(f"V{arr.itemsize}")), name
         arr = t.numpy()
         return arr, str(arr.dtype)
-    arr = np.asarray(leaf)
+    arr = np.array(leaf)
     return arr, str(arr.dtype)
 
 

@@ -70,14 +70,22 @@ _map("bitcast", _aten.view.default, _aten._unsafe_view.default,
      _aten.expand.default, _aten.unsqueeze.default, _aten.squeeze.dim,
      _aten.alias.default, _aten.select.int, _aten.slice.Tensor,
      _aten.unfold.default, _aten.detach.default, _aten.view_as_real.default,
-     _aten._conj.default, _aten.split.Tensor, _aten.empty.memory_format)
+     _aten._conj.default, _aten.split.Tensor, _aten.empty.memory_format,
+     _aten.empty_like.default)
 _map("copy", _aten.clone.default, _aten.copy_.default,
      _aten.lift_fresh_copy.default)
-_map("add", _aten.add.Tensor)
-_map("subtract", _aten.sub.Tensor)
-_map("multiply", _aten.mul.Tensor, _aten.mul_.Scalar,
-     _aten.pow.Tensor_Scalar)                       # x ** 2, as XLA lowers it
-_map("divide", _aten.div.Scalar, _aten.div.Tensor, _aten.reciprocal.default)
+# in-place forms (the optimizer update, autograd's accumulation into an
+# existing gradient) read and write as many bytes as the out-of-place ones
+_map("add", _aten.add.Tensor, _aten.add_.Tensor)
+_map("subtract", _aten.sub.Tensor, _aten.sub_.Tensor, _aten.rsub.Scalar)
+_map("multiply", _aten.mul.Tensor, _aten.mul_.Scalar, _aten.mul_.Tensor,
+     _aten.mul.Scalar,
+     _aten.pow.Tensor_Scalar,                       # x ** 2, as XLA lowers it
+     _aten._softmax_backward_data.default)          # y * (g - sum(g * y))
+_map("divide", _aten.div.Scalar, _aten.div.Tensor, _aten.div_.Tensor,
+     _aten.reciprocal.default)
+_map("sqrt", _aten.sqrt.default, _aten.sqrt_.default)
+_map("clamp", _aten.clamp.default)
 _map("negate", _aten.neg.default)
 _map("maximum", _aten.relu.default)
 _map("exponential", _aten.exp.default,
@@ -87,21 +95,23 @@ _map("power", _aten.pow.Scalar)
 _map("cosine", _aten.cos.default)
 _map("sine", _aten.sin.default)
 _map("tanh", _aten.tanh.default)
-_map("logistic", _aten.silu.default)                # x * sigmoid(x)
-_map("compare", _aten.eq.Tensor, _aten.ge.Scalar, _aten.lt.Scalar)
+_map("logistic", _aten.silu.default,               # x * sigmoid(x)
+     _aten.silu_backward.default)
+_map("compare", _aten.eq.Tensor, _aten.ge.Scalar, _aten.lt.Scalar, _aten.le.Tensor)
 _map("and", _aten.bitwise_and_.Tensor)
 _map("select", _aten.where.self, _aten.threshold_backward.default)
-_map("reduce", _aten.sum.dim_IntList, _aten.mean.default, _aten.mean.dim,
+_map("reduce", _aten.sum.default, _aten.sum.dim_IntList, _aten.mean.default,
+     _aten.mean.dim,
      _aten.argmax.default, _aten.logsumexp.default)
 _map("reduce-window", _aten.max_pool2d_with_indices.default)
 _map("select-and-scatter", _aten.max_pool2d_with_indices_backward.default)
 _map("gather", _aten.index.Tensor)
 _map("scatter", _aten.index_put.default, _aten.unfold_backward.default)
 _map("pad", _aten.constant_pad_nd.default, _aten.slice_backward.default)
-_map("concatenate", _aten.cat.default)
+_map("concatenate", _aten.cat.default, _aten.stack.default)
 _map("reverse", _aten.flip.default)
 _map("iota", _aten.arange.default, _aten.arange.start_step)
-_map("broadcast", _aten.zeros.default, _aten.zeros_like.default,
+_map("broadcast", _aten.zeros.default, _aten.zeros_like.default, _aten.zero_.default,
      _aten.ones_like.default, _aten.new_zeros.default,
      _aten.scalar_tensor.default, _aten.full.default, _aten.ones.default)
 _map("fft", _aten._fft_r2c.default, _aten._fft_c2r.default,
@@ -461,7 +471,8 @@ def capture(fn: Callable, *example_args, name: str = "workload") -> Captured:
     """Trace ``fn`` on fake copies of ``example_args`` and parse it.
 
     The example arguments are only read for shapes, dtypes and devices;
-    nothing runs on them.
+    nothing runs on them.  They may be fake tensors already (as
+    :func:`capture_bundle` makes them); the trace then runs in their mode.
     """
     from torch.fx.experimental.proxy_tensor import make_fx
 
@@ -471,3 +482,20 @@ def capture(fn: Callable, *example_args, name: str = "workload") -> Captured:
     module = parse_hlo_module(text)
     return Captured(name=name, graph=gm, hlo_text=text, module=module,
                     capture_seconds=time.time() - t0, node_instructions=emitted)
+
+
+def capture_bundle(bundle, name: str = "step", device=None) -> Captured:
+    """Capture a :class:`repro_torch.runtime.steps.StepBundle`: its abstract
+    (``meta``) inputs become fake tensors on ``device`` (default cuda), so
+    no full-size state is ever allocated, and its step is traced whole —
+    for a training step the forward, the backward with every recomputed
+    layer, and the optimizer update."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map_only
+
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    with FakeTensorMode():
+        args = tree_map_only(torch.Tensor, lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device=dev), bundle.abstract_inputs)
+    return capture(bundle.fn, *args, name=name)

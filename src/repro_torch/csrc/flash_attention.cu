@@ -19,13 +19,20 @@
 //   products on the tensor cores with
 //   `wgmma`, K/V fed by TMA.  One CTA of two warpgroups per (128 query rows,
 //   head, batch); each warpgroup owns 64 rows.  Q (128 rows) and a 2-stage
-//   ring of 128-key K and V tiles are loaded by TMA through 4-D tensor maps
-//   over the strided (d, s, heads, b) views, with the 128-byte swizzle (64
-//   at d = 32, whose rows are 64 bytes); at d = 128 a tile is two boxes of 64
-//   columns.  One thread issues the next tile's loads before the current one
+//   ring of K and V tiles (128 keys; 64 at d = 256) are loaded by TMA through
+//   4-D tensor maps over the strided (d, s, heads, b) views, in boxes of 64
+//   columns with the 128-byte swizzle (32 columns with the 64-byte swizzle
+//   at d <= 32).  A head dim that is not a whole number of boxes (16, 112)
+//   is padded to one: the box's columns past d lie outside the tensor map
+//   and arrive zero-filled, so the products run at 32 or 128 columns and
+//   only d are stored.  At d = 256 a 128-key ring would need 320 KB of
+//   shared memory and 224 accumulator registers a thread (O alone is 128),
+//   so its tiles hold 64 keys: 192 KB, and S is 32 registers.  One thread
+//   issues the next tile's loads before the current one
 //   is computed; completion is counted on an mbarrier (`complete_tx`), and
 //   an "empty" mbarrier that every thread arrives at after its last read
-//   frees a stage.  S = Q K^T is m64n128k16 with both operands K-major in
+//   frees a stage.  S = Q K^T is m64nKk16 (K the tile's keys) with both
+//   operands K-major in
 //   shared memory; the softmax runs in registers on the accumulator layout
 //   (scaled by scale * log2(e), exp2f; a row's max and sum are reduced over
 //   the 4 threads that hold it); P is rounded to the input's 16-bit type in
@@ -238,11 +245,11 @@ int launch_f32(const Params& p, int B, cudaStream_t stream) {
 // ------------------------------------------------------- bf16 and fp16 ----
 
 constexpr int kRows = 128;     // query rows per CTA: two warpgroups of 64
-constexpr int kKeys = 128;     // keys per K/V tile
 constexpr int kWgThreads = 256;
-// the K/V ring's depth: 2 at d = 128 (160 KB of shared memory), and 2 at d 32
-// and 64 too, where 3 and 4 stages tie (d 32) or lose (d 64) on the H100;
-// scripts/flash_ring_depth.py builds the other depths to measure them
+// the K/V ring's depth: 2 at d 112, 128 and 256 (160, 160 and 192 KB of
+// shared memory), and 2 at d <= 64 too, where 3 and 4 stages tie (d 32) or
+// lose (d 64) on the H100; scripts/flash_ring_depth.py builds the other
+// depths to measure them
 #ifndef REPRO_FLASH_SMALL_D_STAGES
 #define REPRO_FLASH_SMALL_D_STAGES 2
 #endif
@@ -250,15 +257,20 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
-  static constexpr int kStages = D == 128 ? 2 : REPRO_FLASH_SMALL_D_STAGES;
-  static constexpr int kBoxCols = D < 64 ? D : 64;  // columns of one TMA box
-  static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kRowBytes = kBoxCols * 2;    // one swizzled row: 128 B (64 B at d 32)
-  static constexpr int kBoxBytes = 128 * kRowBytes; // a 128-row box
-  static constexpr int kBytes = kBoxes * kBoxBytes; // a Q, K or V tile (128 rows x D)
+  static_assert(D % 16 == 0 && D <= 256, "the head dim must be a multiple of 16, at most 256");
+  static constexpr int kStages = D > 64 ? 2 : REPRO_FLASH_SMALL_D_STAGES;
+  static constexpr int kKeys = D > 128 ? 64 : 128;  // keys per K/V tile
+  static constexpr int kBoxCols = D <= 32 ? 32 : 64;  // columns of one TMA box
+  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;  // columns past D: zeros
+  static constexpr int kRowBytes = kBoxCols * 2;    // one swizzled row: 128 B (64 B at d <= 32)
+  static constexpr int kQBoxBytes = kRows * kRowBytes;   // a 128-row Q box
+  static constexpr int kKVBoxBytes = kKeys * kRowBytes;  // a K or V box
+  static constexpr int kQBytes = kBoxes * kQBoxBytes;    // the Q tile
+  static constexpr int kKVBytes = kBoxes * kKVBoxBytes;  // a K or V tile
   static constexpr int kGroupBytes = 8 * kRowBytes; // 8 rows: one swizzle pattern
-  static constexpr uint64_t kLayout = D < 64 ? 2 : 1;  // wgmma: 1 = 128-byte, 2 = 64-byte swizzle
-  static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 1024;  // + alignment slack
+  static constexpr uint64_t kLayout = kBoxCols == 32 ? 2 : 1;  // wgmma: 1 = 128-byte, 2 = 64-byte swizzle
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;  // + alignment slack
+  static_assert(kSmem <= 232448 - 1024, "over the shared memory a block may have");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -371,6 +383,39 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, ui
   }
 }
 
+#define WGMMA_SS_M64N64(TY)                                                                                   \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "                       \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+      : "l"(da), "l"(db), "r"(accumulate));
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  if constexpr (kF16<T>) {
+    WGMMA_SS_M64N64("f16");
+  } else {
+    WGMMA_SS_M64N64("bf16");
+  }
+}
+
+// S += Q K^T for one 16-column step over the N keys of a K tile
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_m64n64<T>(d, da, db, accumulate);
+  } else {
+    wgmma_ss_m64n128<T>(d, da, db, accumulate);
+  }
+}
+
 #define WGMMA_RS_M64N32(TY)                                                                                \
   asm volatile(                                                                                              \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                           \
@@ -427,6 +472,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using L = Tile<D>;
+  constexpr int kKeys = L::kKeys;
   constexpr int kBoxHalf = L::kBoxCols / 2;  // accumulator floats a thread holds per V box
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * L::kStages];  // Q; full[s]; empty[s]
@@ -436,8 +482,8 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
   const uint32_t bar_q = smem_u32(&bars[0]);
   const uint32_t bar_full0 = smem_u32(&bars[1]);
   const uint32_t bar_empty0 = smem_u32(&bars[1 + L::kStages]);
-#define K_TILE(s) (base + (uint32_t)((1 + 2 * (s)) * L::kBytes))
-#define V_TILE(s) (base + (uint32_t)((2 + 2 * (s)) * L::kBytes))
+#define K_TILE(s) (base + (uint32_t)(L::kQBytes + 2 * (s) * L::kKVBytes))
+#define V_TILE(s) (base + (uint32_t)(L::kQBytes + (2 * (s) + 1) * L::kKVBytes))
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -468,18 +514,18 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
   // K and V tile `k0` into stage s (thread 0 only)
   auto load_kv = [&](int s, int k0) {
     const uint32_t full = bar_full0 + 8 * s;
-    mbar_expect_tx(full, 2 * L::kBytes);
+    mbar_expect_tx(full, 2 * L::kKVBytes);
 #pragma unroll
     for (int c = 0; c < L::kBoxes; ++c) {
-      tma_load_4d(K_TILE(s) + c * L::kBoxBytes, &tm_k, full, c * L::kBoxCols, k0, kvh, b);
-      tma_load_4d(V_TILE(s) + c * L::kBoxBytes, &tm_v, full, c * L::kBoxCols, k0, kvh, b);
+      tma_load_4d(K_TILE(s) + c * L::kKVBoxBytes, &tm_k, full, c * L::kBoxCols, k0, kvh, b);
+      tma_load_4d(V_TILE(s) + c * L::kKVBoxBytes, &tm_v, full, c * L::kBoxCols, k0, kvh, b);
     }
   };
   if (tid == 0) {
-    mbar_expect_tx(bar_q, L::kBytes);
+    mbar_expect_tx(bar_q, L::kQBytes);
 #pragma unroll
     for (int c = 0; c < L::kBoxes; ++c)
-      tma_load_4d(sQ + c * L::kBoxBytes, &tm_q, bar_q, c * L::kBoxCols, q0, h, b);
+      tma_load_4d(sQ + c * L::kQBoxBytes, &tm_q, bar_q, c * L::kBoxCols, q0, h, b);
     for (int t = 0; t < L::kStages - 1 && t < n_tiles; ++t) load_kv(t, kv_begin + t * kKeys);
   }
 
@@ -512,17 +558,22 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     __syncwarp();
     mbar_wait(bar_full0 + 8 * s, (j / L::kStages) & 1);
 
-    // S = Q K^T: both operands K-major, one k16 step per 32 bytes of a swizzled row
-    float sc[64];
+    // S = Q K^T: both operands K-major, one k16 step per 32 bytes of a swizzled
+    // row, over the D columns that hold the head (a padded box's zeros add
+    // nothing)
+    float sc[kKeys / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk * 16 / L::kBoxCols) * L::kBoxBytes + (kk * 16 % L::kBoxCols) * 2;
-      wgmma_ss_m64n128<T>(sc, make_desc(q_rows + off, 16, L::kGroupBytes, L::kLayout),
-                       make_desc(K_TILE(s) + off, 16, L::kGroupBytes, L::kLayout), kk > 0);
+      const int box = kk * 16 / L::kBoxCols;
+      const uint32_t col = (kk * 16 % L::kBoxCols) * 2;
+      wgmma_qk<T, kKeys>(
+          sc, make_desc(q_rows + box * L::kQBoxBytes + col, 16, L::kGroupBytes, L::kLayout),
+          make_desc(K_TILE(s) + box * L::kKVBoxBytes + col, 16, L::kGroupBytes, L::kLayout),
+          kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -532,16 +583,16 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     // key k0 + (i / 4) * 8 + c0 + (i & 1)
     if (p.softcap > 0.f) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = p.softcap * kLog2e * tanhf(sc[i] * qk_scale);
+      for (int i = 0; i < kKeys / 2; ++i) sc[i] = p.softcap * kLog2e * tanhf(sc[i] * qk_scale);
     } else {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] *= qk_scale;
+      for (int i = 0; i < kKeys / 2; ++i) sc[i] *= qk_scale;
     }
     const bool edge = k0 + kKeys > p.T || (p.causal && k0 + kKeys - 1 > wg_row0) ||
                       (p.window > 0 && k0 < wg_row0 + 64 - p.window);
     if (edge) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kKeys / 2; ++i) {
         const int kp = k0 + (i / 4) * 8 + c0 + (i & 1);
         const int qp = r0 + 8 * ((i >> 1) & 1);
         const bool ok = kp < p.T && (!p.causal || kp <= qp) &&
@@ -551,7 +602,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     }
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    for (int i = 0; i < kKeys / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     float alpha[2], mu[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -564,7 +615,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     }
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kKeys / 2; ++i) {
       sc[i] = exp2f(sc[i] - mu[(i >> 1) & 1]);  // exp2(-inf) = 0 for a masked key
       rs[(i >> 1) & 1] += sc[i];
     }
@@ -591,7 +642,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     for (int kk = 0; kk < kKeys / 16; ++kk)
 #pragma unroll
       for (int c = 0; c < L::kBoxes; ++c) {
-        const uint32_t v = V_TILE(s) + c * L::kBoxBytes + kk * 16 * L::kRowBytes;
+        const uint32_t v = V_TILE(s) + c * L::kKVBoxBytes + kk * 16 * L::kRowBytes;
         wgmma_pv<T, L::kBoxCols>(o_acc[c], pa[kk],
                               make_desc(v, L::kGroupBytes, L::kGroupBytes, L::kLayout));
       }
@@ -617,6 +668,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 #pragma unroll
     for (int jj = 0; jj < kBoxHalf / 4; ++jj) {
       const int col = c * L::kBoxCols + jj * 8 + c0;
+      if (col >= D) continue;  // a padded box's zero columns
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
@@ -652,11 +704,11 @@ EncodeTiled encoder() {
 }
 
 // a tensor map over a (d, rows, heads, batch) view with element strides
-// (1, s_row, s_head, s_b) and a box of (L::kBoxCols, 128, 1, 1); rows past
-// `rows` arrive zero-filled
+// (1, s_row, s_head, s_b) and a box of (L::kBoxCols, box_rows, 1, 1); rows
+// past `rows` and columns past D arrive zero-filled
 template <typename T, int D>
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads, int B, long long s_row,
-              long long s_head, long long s_b) {
+              long long s_head, long long s_b, int box_rows) {
   using L = Tile<D>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
@@ -669,22 +721,23 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads, int B, lon
     strides[i] = dims[i + 1] == 1 ? packed : (cuuint64_t)st[i] * 2;
     packed = strides[i] * dims[i + 1];
   }
-  const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)kRows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapDataType type =
       kF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+             L::kBoxCols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, int D>
 int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!make_map<T, D>(&mq, p.q, p.S, p.H, B, p.qss, p.qsh, p.qsb) ||
-      !make_map<T, D>(&mk, p.k, p.T, p.KVH, B, p.kst, p.ksh, p.ksb) ||
-      !make_map<T, D>(&mv, p.v, p.T, p.KVH, B, p.vst, p.vsh, p.vsb))
+  constexpr int keys = Tile<D>::kKeys;
+  if (!make_map<T, D>(&mq, p.q, p.S, p.H, B, p.qss, p.qsh, p.qsb, kRows) ||
+      !make_map<T, D>(&mk, p.k, p.T, p.KVH, B, p.kst, p.ksh, p.ksb, keys) ||
+      !make_map<T, D>(&mv, p.v, p.T, p.KVH, B, p.vst, p.vsh, p.vsb, keys))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = Tile<D>::kSmem;
   auto kern = attn_wgmma_kernel<T, D>;
@@ -695,6 +748,14 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   dim3 grid((unsigned)((p.S + kRows - 1) / kRows), (unsigned)p.H, (unsigned)B);
   kern<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
+}
+template <int D>
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  return launch_wgmma<__nv_bfloat16, D>(p, B, stream);
+}
+template <int D>
+int launch_f16(const Params& p, int B, cudaStream_t stream) {
+  return launch_wgmma<__half, D>(p, B, stream);
 }
 
 }  // namespace
@@ -714,18 +775,20 @@ extern "C" int repro_flash_attention(
   Params p{q, k, v, o, H, KVH, S, T, qsb, qsh, qss, ksb, ksh, kst,
            vsb, vsh, vst, osb, osh, oss, causal, window, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (D == 32) return launch_f32<32>(p, B, s);
-    if (D == 64) return launch_f32<64>(p, B, s);
-    if (D == 128) return launch_f32<128>(p, B, s);
-  } else if (dtype == 1) {
-    if (D == 32) return launch_wgmma<__nv_bfloat16, 32>(p, B, s);
-    if (D == 64) return launch_wgmma<__nv_bfloat16, 64>(p, B, s);
-    if (D == 128) return launch_wgmma<__nv_bfloat16, 128>(p, B, s);
-  } else if (dtype == 2) {
-    if (D == 32) return launch_wgmma<__half, 32>(p, B, s);
-    if (D == 64) return launch_wgmma<__half, 64>(p, B, s);
-    if (D == 128) return launch_wgmma<__half, 128>(p, B, s);
+  // the head dims compiled: kernel.py's HEAD_DIMS
+#define REPRO_FLASH_DISPATCH(LAUNCH)                    \
+  switch (D) {                                          \
+    case 16: return LAUNCH<16>(p, B, s);                \
+    case 32: return LAUNCH<32>(p, B, s);                \
+    case 64: return LAUNCH<64>(p, B, s);                \
+    case 112: return LAUNCH<112>(p, B, s);              \
+    case 128: return LAUNCH<128>(p, B, s);              \
+    case 256: return LAUNCH<256>(p, B, s);              \
+    default: return (int)cudaErrorInvalidValue;         \
   }
+  if (dtype == 0) REPRO_FLASH_DISPATCH(launch_f32)
+  if (dtype == 1) REPRO_FLASH_DISPATCH(launch_bf16)
+  if (dtype == 2) REPRO_FLASH_DISPATCH(launch_f16)
+#undef REPRO_FLASH_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

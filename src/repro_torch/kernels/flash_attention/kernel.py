@@ -17,8 +17,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import launch
 
-#: the head dims compiled into the library; any other raises
-HEAD_DIMS = (32, 64, 128)
+#: the head dims compiled into the library; any other raises.  16 (every
+#: smoke config), 112 (zamba2-7b) and 256 (gemma3-12b) run the 16-bit kernel
+#: on boxes padded with zeros past d, and 256 on 64-key tiles (see the note
+#: at the top of the CUDA source)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the dtypes the tensor-core kernel takes, through TMA
 _WGMMA = (torch.bfloat16, torch.float16)
@@ -53,8 +56,8 @@ def check_tma_layout(name: str, shape, strides, itemsize: int,
     address on a 16-byte boundary and, for every dim the kernel steps (all
     but d, which must have unit stride), a byte stride that is a positive
     multiple of 16.  A dim of extent 1 is never stepped, so its stride does
-    not matter.  The model's (b, s, heads, d) views at d = 32, 64 and 128
-    all qualify.
+    not matter.  The model's (b, s, heads, d) views at every compiled d
+    qualify (a row of d values is a multiple of 32 bytes).
     """
     if data_ptr % 16:
         raise ValueError(f"flash_attention (16-bit): {name}'s base address is not "

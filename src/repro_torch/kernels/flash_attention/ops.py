@@ -4,7 +4,8 @@ The counterpart of ``repro.kernels.flash_attention.ops``.  The op is a
 ``torch.library.custom_op`` with a fake implementation (so a captured step
 shows every launch as one node) and an autograd rule whose backward
 recomputes through :func:`attention_ref`, as the reference's ``custom_vjp``
-does: there is no backward kernel in either package.  On CUDA tensors the op
+does (one sequence and head group at a time): there is no backward kernel
+in either package.  On CUDA tensors the op
 launches the kernel; on CPU tensors it runs :func:`attention_ref`.  Unlike
 the reference wrapper it neither pads nor falls back: the kernel masks
 ragged sequence ends itself.
@@ -43,11 +44,39 @@ def _setup_context(ctx, inputs, output):
     ctx.mask = dict(causal=causal, window=window, softcap=softcap)
 
 
+#: bytes of fp32 scores one piece of the backward may hold (512 MB)
+BACKWARD_SCORE_BYTES = 1 << 29
+
+
+def backward_pieces(b: int, kvh: int, group: int, s: int, t: int):
+    """(batch index, first kv head, kv heads) of each piece the backward
+    recomputes on its own: one sequence, and as many kv heads (with their
+    query heads) as keep its (s, t) fp32 scores within
+    ``BACKWARD_SCORE_BYTES``, at least one."""
+    step = max(1, min(kvh, BACKWARD_SCORE_BYTES // max(4 * group * s * t, 1)))
+    return [(i, h0, min(step, kvh - h0)) for i in range(b) for h0 in range(0, kvh, step)]
+
+
 def _backward(ctx, grad):
-    with torch.enable_grad():
-        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
-        out = attention_ref(q, k, v, **ctx.mask)
-    dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
+    """Recompute through attention_ref and differentiate it, piece by piece
+    (:func:`backward_pieces`): each (sequence, head group) is independent,
+    so the pieces give the whole tensor's gradients, while only one piece's
+    scores (and their softmax and gradients) exist at a time, whatever the
+    batch.  At qwen1.5-4b's s = 4096 a sequence's 20 heads would hold 1.3
+    GB a copy."""
+    q, k, v = ctx.saved_tensors
+    b, h, s, _ = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    group = h // kvh
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for i, h0, n in backward_pieces(b, kvh, group, s, t):
+        kv = (slice(i, i + 1), slice(h0, h0 + n))
+        qh = (slice(i, i + 1), slice(h0 * group, (h0 + n) * group))
+        with torch.enable_grad():
+            qi, ki, vi = (x.detach().requires_grad_() for x in (q[qh], k[kv], v[kv]))
+            out = attention_ref(qi, ki, vi, **ctx.mask)
+        dqi, dki, dvi = torch.autograd.grad(out, (qi, ki, vi), grad[qh])
+        dq[qh], dk[kv], dv[kv] = dqi, dki, dvi
     return dq, dk, dv, None, None, None
 
 

@@ -1,15 +1,18 @@
 """Model zoo of the port: the paper's LeNet and the dense decoder LM."""
 from __future__ import annotations
 
-from repro_torch.config import ModelConfig
+from typing import Optional
+
+from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.models.layers import spec_param_count
 
 
-def build_model(cfg: ModelConfig, **kw):
-    """The model object of ``cfg``'s family (``kw`` goes to LeNet)."""
+def build_model(cfg: ModelConfig, sharding: Optional[ShardingConfig] = None, **kw):
+    """The model object of ``cfg``'s family (``kw`` goes to LeNet).  Of the
+    sharding config only ``remat_policy`` is read, by the LM."""
     if cfg.family == "dense":
         from repro_torch.models.transformer import DecoderLM
-        return DecoderLM(cfg)
+        return DecoderLM(cfg, sharding)
     if cfg.family == "conv":
         from repro_torch.models.lenet import LeNet
         return LeNet(cfg, **kw)

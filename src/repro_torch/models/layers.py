@@ -3,9 +3,9 @@
 The port of ``repro.models.layers``: :class:`ParamSpec` trees (nested dicts
 of specs, stacked on a leading layer axis by :func:`stack_specs`), their
 ``normal``/``zeros``/``embed`` initializers drawn from an explicit
-``torch.Generator`` on the generator's device, and the layers LeNet and the
-decoder LMs use.  Layouts follow the reference package so parameters
-transfer 1:1.
+``torch.Generator`` on the generator's device, the layers LeNet and the
+decoder LMs use, and the LMs' chunked training loss.  Layouts follow the
+reference package so parameters transfer 1:1.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -168,3 +169,42 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
             lse - logits.mean(-1))
     zl = z_loss * lse.square() if z_loss else torch.zeros_like(lse)
     return ce, zl
+
+
+def _chunk_loss(xb: torch.Tensor, head_w: torch.Tensor, lb: torch.Tensor,
+                mb: torch.Tensor, z_loss: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One chunk's masked (loss, ce, token) sums."""
+    logits = xb @ head_w
+    ce, zl = softmax_cross_entropy(logits, lb, z_loss=z_loss)
+    return torch.sum((ce + zl) * mb), torch.sum(ce * mb), torch.sum(mb)
+
+
+def lm_loss_from_hidden(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                        *, z_loss: float = 0.0, chunk: int = 512,
+                        mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequence-chunked LM loss: never materializes full (b, s, V) logits.
+
+    The reference's scan over chunks becomes a loop; each chunk's logits are
+    recomputed in the backward pass (``torch.utils.checkpoint`` on the chunk,
+    the reference's ``jax.checkpoint``), bounding loss memory at
+    O(b * chunk * V).  The chunk is the largest divisor of s that is at most
+    ``chunk``.  Returns (loss_mean, ce_mean) over the mask's tokens.
+    """
+    b, s, _ = x.shape
+    c = next(cc for cc in range(min(chunk, s), 0, -1) if s % cc == 0)
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    tot, ce_tot, cnt = zero, zero, zero
+    for i in range(0, s, c):
+        args = (x[:, i:i + c], head_w, labels[:, i:i + c], mask[:, i:i + c], z_loss)
+        if torch.is_grad_enabled():
+            t, ct, n = checkpoint(_chunk_loss, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            t, ct, n = _chunk_loss(*args)
+        tot, ce_tot, cnt = tot + t, ce_tot + ct, cnt + n
+    denom = torch.clamp(cnt, min=1.0)
+    return tot / denom, ce_tot / denom

@@ -1,26 +1,35 @@
-"""Decoder-only transformer LM, ``family == "dense"`` (llama3-8b).
+"""Decoder-only transformer LM, ``family == "dense"`` (llama3-8b,
+qwen1.5-4b, gemma3-12b/27b).
 
 The port of ``repro.models.transformer.DecoderLM``.  It keeps the
 reference's parameter tree — ``embed``, ``layers`` stacked on a leading
 (L, ...) axis, ``ln_f``, ``head`` — so weights transfer 1:1
-(:func:`params_from_jax`), and loops over the layers in Python where the
-reference runs ``lax.scan``.  The KV cache is ``{"k", "v": (L, b, S, kv,
-hd), "pos": int}``; prefill fills it layer by layer and decode updates it in
-place.  The ``moe`` and ``vlm`` families come with their own modules later.
+(:func:`params_from_jax`, and a whole training state with
+:func:`state_from_jax`), and loops over the layers in Python where the
+reference runs ``lax.scan``.  Under autograd each layer is recomputed in the
+backward pass as the sharding config's ``remat_policy`` says (the
+reference's ``jax.checkpoint`` on the scan body).  The KV cache is ``{"k",
+"v": (L, b, S, kv, hd), "pos": int}``; prefill fills it layer by layer and
+decode updates it in place.  The ``moe`` and ``vlm`` families come with
+their own modules later.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig, ShardingConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (ParamSpec, init_params, pad_vocab,
-                                       rms_norm, rms_norm_spec, stack_specs,
-                                       swiglu, torch_dtype)
+from repro_torch.models.layers import (ParamSpec, init_params, lm_loss_from_hidden,
+                                       pad_vocab, rms_norm, rms_norm_spec,
+                                       stack_specs, swiglu, torch_dtype)
+from repro_torch.optim import TrainState
 
 Params = Dict[str, Any]
 
@@ -53,6 +62,22 @@ def params_from_jax(params: Mapping[str, Any],
     return out
 
 
+def state_from_jax(state: Any, cfg: Optional[ModelConfig] = None) -> TrainState:
+    """The reference package's ``TrainState`` (step, params, master, m, v as
+    numpy arrays) as the port's: the same trees of CPU tensors, the step a
+    0-d int32 tensor.  With ``cfg`` every tree is checked against the
+    model's specs (params in the model's dtype, the rest fp32)."""
+    step, params, master, m, v = state
+    out = TrainState(torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+                     params_from_jax(params, cfg),
+                     *(params_from_jax(t) for t in (master, m, v)))
+    if cfg is not None:
+        specs = DecoderLM(cfg).param_specs()
+        for name, tree in zip(("master", "m", "v"), out[2:]):
+            _check_tree(tree, specs, torch.float32, name)
+    return out
+
+
 def _check_tree(vals: Any, specs: Any, dtype: torch.dtype, where: str) -> None:
     if isinstance(specs, ParamSpec):
         if tuple(vals.shape) != specs.shape or vals.dtype != dtype:
@@ -67,20 +92,37 @@ def _check_tree(vals: Any, specs: Any, dtype: torch.dtype, where: str) -> None:
 
 
 def _layer(tree: Any, idx: int) -> Any:
-    """Layer ``idx`` of a stacked (L, ...) parameter tree (views, no copies)."""
+    """Layer ``idx`` of a stacked (L, ...) parameter tree (views, no copies),
+    or of a list of per-layer trees (the train step's gradient leaves)."""
+    if isinstance(tree, list):
+        return tree[idx]
     if isinstance(tree, Mapping):
         return {k: _layer(v, idx) for k, v in tree.items()}
     return tree[idx]
 
 
-class DecoderLM:
-    """The dense decoder-only LM: specs, init, forward, prefill and decode."""
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
-    def __init__(self, cfg: ModelConfig):
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" remat policy: keep the products without batch dims (the
+    reference's ``checkpoint_dots_with_no_batch_dims``), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+class DecoderLM:
+    """The dense decoder-only LM: specs, init, forward, loss, prefill and
+    decode."""
+
+    def __init__(self, cfg: ModelConfig, sharding: Optional[ShardingConfig] = None):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (only 'dense')")
         self.cfg = cfg
+        self.sharding = sharding or ShardingConfig()
+        if self.sharding.remat_policy not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat_policy {self.sharding.remat_policy!r}")
 
     # ------------------------------------------------------------------ specs
     def layer_specs(self) -> Dict[str, Any]:
@@ -113,6 +155,16 @@ class DecoderLM:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         return init_params(self.param_specs(), gen, self.cfg.dtype)
 
+    def abstract(self) -> Params:
+        """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+        storage (the reference's ``ShapeDtypeStruct`` tree)."""
+        def meta(spec):
+            if isinstance(spec, ParamSpec):
+                return torch.empty(spec.shape, device="meta",
+                                   dtype=torch_dtype(spec.dtype or self.cfg.dtype))
+            return {k: meta(v) for k, v in spec.items()}
+        return meta(self.param_specs())
+
     # ---------------------------------------------------------------- embed
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(torch_dtype(self.cfg.dtype))
@@ -128,6 +180,27 @@ class DecoderLM:
         f = p_l["ffn"]
         return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
 
+    def _block(self, p_l: Params, x: torch.Tensor, positions: torch.Tensor,
+               window: int) -> torch.Tensor:
+        h = rms_norm(x, p_l["ln1"], self.cfg.norm_eps)
+        x = x + attn.attention(p_l["attn"], self.cfg, h, positions, window=window)
+        return self._ffn(p_l, x)
+
+    def _remat_block(self, *args) -> torch.Tensor:
+        """One layer under the remat policy: "full" keeps only the layer's
+        input and recomputes the rest in the backward pass, "dots" also
+        keeps the products' outputs, "none" keeps everything.  Without
+        autograd the layer just runs."""
+        policy = self.sharding.remat_policy
+        if policy == "none" or not torch.is_grad_enabled():
+            return self._block(*args)
+        kw = {}
+        if policy == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_dots)
+        return checkpoint(self._block, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
     # ---------------------------------------------------------------- train
     def hidden(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """Causal forward -> final-norm hidden (b, s, d)."""
@@ -135,12 +208,26 @@ class DecoderLM:
         x = self._embed(params, tokens)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         for idx in range(cfg.num_layers):
-            p_l = _layer(params["layers"], idx)
-            h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
-            x = x + attn.attention(p_l["attn"], cfg, h, positions,
-                                   window=self._window_for(idx))
-            x = self._ffn(p_l, x)
+            x = self._remat_block(_layer(params["layers"], idx), x, positions,
+                                  self._window_for(idx))
         return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+    def loss(self, params: Params, batch: Mapping[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(mean loss, {"ce", "aux_loss"}) of a {tokens, labels[, loss_mask]}
+        batch: the chunked LM loss with the reference's z-loss of 1e-4."""
+        x = self.hidden(params, batch["tokens"])
+        loss, ce = lm_loss_from_hidden(x, params["head"], batch["labels"],
+                                       z_loss=1e-4, mask=batch.get("loss_mask"))
+        return loss, {"ce": ce, "aux_loss": torch.zeros((), device=loss.device)}
+
+    def train_input_specs(self, shape: ShapeConfig
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[str, ...]]]:
+        """The train batch as ``meta`` tensors, and its logical axes."""
+        tok = torch.empty((shape.global_batch, shape.seq_len), dtype=torch.int32,
+                          device="meta")
+        return ({"tokens": tok, "labels": tok.clone()},
+                {"tokens": ("batch", "seq"), "labels": ("batch", "seq")})
 
     def forward(self, params: Params, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

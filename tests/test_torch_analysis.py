@@ -345,8 +345,8 @@ def test_cli_runs_on_the_cpu_with_jax_blocked(lenet_hlo):
     ["nope", "--device", "cpu"],                    # unknown arch
     ["lenet", "--hw", "tpu-v9", "--device", "cpu"],  # unknown hw
     ["lenet", "--buckets", "0", "--device", "cpu"],  # bad bucket count
-    ["llama3-8b", "--device", "cpu"],               # its train step is not ported
-], ids=["arch", "hw", "buckets", "not-ported"])
+    ["llama3-8b", "--seq-len", "0", "--device", "cpu"],  # bad sequence length
+], ids=["arch", "hw", "buckets", "seq-len"])
 def test_cli_exits_2_on_bad_arguments(argv, capsys):
     assert main(argv) == 2
     err = capsys.readouterr().err.strip().splitlines()

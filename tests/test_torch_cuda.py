@@ -277,11 +277,15 @@ def test_winograd_refuses_what_it_does_not_take(cuda):
     assert (winograd_conv.launches, winograd_tiles.launches) == launches
 
 
-# GQA groups 1, 2, 4 and 8 over head dims 32, 64 and 128; lengths on and off
-# the bf16 kernel's 128-row tiles
+# GQA groups 1, 2, 4 and 8 over head dims 16, 32, 64, 112, 128 and 256;
+# lengths on and off the 16-bit kernel's 128-row tiles (and d 256's 64-key
+# tiles)
 FLASH_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
                 (1, 4, 4, 384, 64), (2, 8, 2, 200, 128), (1, 4, 2, 77, 64),
-                (1, 8, 8, 77, 128), (1, 8, 1, 1, 32), (1, 16, 4, 2000, 128)]
+                (1, 8, 8, 77, 128), (1, 8, 1, 1, 32), (1, 16, 4, 2000, 128),
+                (2, 4, 2, 200, 16), (1, 4, 4, 77, 16), (1, 4, 2, 300, 112),
+                (2, 8, 8, 128, 112), (1, 4, 2, 300, 256), (2, 16, 8, 256, 256),
+                (1, 2, 1, 77, 256)]
 # windows of 64 and 200 cross the 128-key tiles' edges
 FLASH_MASKS = [(True, 0, 0.0), (True, 64, 0.0), (False, 0, 0.0), (True, 0, 30.0),
                (False, 64, 30.0), (True, 200, 0.0)]
@@ -355,10 +359,11 @@ def test_flash_attention_kernel(cuda, b, h, kv, s, d, causal, window, softcap, d
                                  (1, 1), (2000, 2000), (77, 333)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_flash_attention_ragged(cuda, s, t, causal, window, dtype):
+@pytest.mark.parametrize("d", [64, 16, 112, 256])
+def test_flash_attention_ragged(cuda, s, t, causal, window, dtype, d):
     """Ragged s != t, masked in the kernel: held to attention_ref (the
     reference wrapper's unmasked pads are wrong for causal s > t)."""
-    q, k, v = _flash_inputs(1, 4, 2, s, 64, t=t, dtype=dtype, device=cuda)
+    q, k, v = _flash_inputs(1, 4, 2, s, d, t=t, dtype=dtype, device=cuda)
     out = flash_attention(q, k, v, causal=causal, window=window)
     err, scale = _err(out, attention_ref(q, k, v, causal=causal, window=window))
     assert err <= _flash_tol(dtype) * scale
@@ -398,8 +403,8 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
         flash_attention_fwd(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
         flash_attention_fwd(q.half(), k.bfloat16(), v.bfloat16())
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_fwd(*_flash_inputs(1, 4, 2, 64, 256, device=cuda))
+    with pytest.raises(ValueError, match="head_dim"):   # not compiled
+        flash_attention_fwd(*_flash_inputs(1, 4, 2, 64, 80, device=cuda))
     with pytest.raises(ValueError):
         flash_attention_fwd(q, k[:, :1].expand(1, 3, 64, 64), v[:, :1].expand(1, 3, 64, 64))
     with pytest.raises(ValueError):
@@ -461,3 +466,58 @@ def test_card_reference_attributes_every_kernel(cuda):
     cr = sim.correlate(cap, ref)
     simulated = {r.kernel for r in cr.rows if r.sim_seconds > 0}
     assert {c for c, t in ref.items() if t > 0} <= simulated
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One qwen1.5-4b smoke train step in fp32 on the card (the flash kernel
+    at d 16, forward and recompute) against the same step on the CPU (its
+    plain version), from the same weights and batch: the loss and grad norm
+    within 1e-5, every gradient leaf within 1e-4 of its scale, and the
+    master's update within 1e-2 of its norm.  Not the master weight by
+    weight: AdamW's first step moves each by about lr * sign(g), so a weight
+    whose gradient lies within its rounding of zero moves the other way."""
+    import dataclasses
+
+    from repro_torch import config as C
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_state, tree_leaves, tree_map
+    from repro_torch.runtime.steps import loss_and_grads, train_bundle
+    cfg = dataclasses.replace(C.get("qwen1.5-4b").smoke, dtype="float32")
+    rc = C.RunConfig(model=cfg, shape=C.ShapeConfig("t", 40, 2, "train"), mesh=C.SMOKE_MESH,
+                     train=C.TrainConfig(warmup_steps=1, learning_rate=1e-3))
+    model = build_model(cfg)
+    cpu_params = model.init(seed=0, device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 41)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        batch = {"tokens": tok[:, :-1].to(dev), "labels": tok[:, 1:].to(dev)}
+        # copies: the update writes the params in place
+        params = tree_map(lambda t: t.to(dev, copy=True), cpu_params)
+        grads = tree_map(torch.zeros_like, params)
+        loss_and_grads(model, params, batch, grads)
+        state = init_state(params)
+        before = torch.cat([t.reshape(-1).cpu() for t in tree_leaves(state.master)])
+        launches = flash_attention_fwd.launches
+        state, m = train_bundle(rc).fn(state, batch)
+        update = torch.cat([t.reshape(-1).cpu() for t in tree_leaves(state.master)]) - before
+        out[str(dev)] = (m, grads, update, flash_attention_fwd.launches - launches)
+    (mc, gc, uc, lc), (mg, gg, ug, lg) = out["cpu"], out["cuda"]
+    assert lc == 0 and lg == 2 * cfg.num_layers
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mg[key]) - float(mc[key])) <= 1e-5 * abs(float(mc[key]))
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        err, scale = _err(a.cpu(), b)
+        assert err <= 1e-4 * scale
+    assert float((ug - uc).norm()) <= 1e-2 * float(uc.norm())
+
+
+@pytest.mark.cuda
+def test_pipeline_places_batches_on_the_card(cuda):
+    from repro_torch.data.pipeline import DataPipeline
+    src = [{"tokens": np.full((2, 5), i, np.int32)} for i in range(3)]
+    data = DataPipeline(iter(src), cuda)
+    got = list(data)
+    data.close()
+    assert [b["tokens"].device.type for b in got] == ["cuda"] * 3
+    assert [int(b["tokens"][1, 4]) for b in got] == [0, 1, 2]

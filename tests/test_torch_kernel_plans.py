@@ -79,7 +79,7 @@ def _model_view(b, s, heads, d, dtype=torch.bfloat16):
     return torch.zeros(b, s, heads, d, dtype=dtype).transpose(1, 2)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128, 256])
 @pytest.mark.parametrize("b,s,heads", [(4, 2048, 32), (4, 2048, 8), (1, 77, 4), (2, 1, 8)])
 def test_tma_layout_accepts_the_models_views(d, b, s, heads):
     x = _model_view(b, s, heads, d)

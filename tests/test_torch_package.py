@@ -55,6 +55,20 @@ def test_imports_with_jax_and_repro_blocked():
     assert out.stdout.strip() == "ok"
 
 
+#: the modules of the training slice (and its configs), which the import
+#: test above must cover
+TRAINING_SLICE = ("repro_torch.configs.qwen15_4b", "repro_torch.configs.gemma3_12b",
+                  "repro_torch.configs.gemma3_27b", "repro_torch.optim",
+                  "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+                  "repro_torch.data.pipeline", "repro_torch.runtime.failure",
+                  "repro_torch.runtime.trainer", "repro_torch.runtime.steps",
+                  "repro_torch.launch.train")
+
+
+def test_the_import_block_covers_the_training_slice():
+    assert set(TRAINING_SLICE) <= set(_modules())
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -89,6 +103,22 @@ def test_serving_entry_points_need_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama3-8b", "--smoke"])
     assert DecoderLM(smoke).init(device="cpu")["embed"].device.type == "cpu"
+
+
+def test_training_entry_points_need_cuda(monkeypatch, tmp_path):
+    from repro_torch.launch import train
+    from repro_torch.runtime.steps import init_train_state
+    from repro_torch.runtime.trainer import Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = C.RunConfig(model=C.get("qwen1.5-4b").smoke,
+                     shape=C.ShapeConfig("t", 16, 2, "train"), mesh=C.SMOKE_MESH)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(rc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(rc, use_mesh=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen1.5-4b", "--smoke", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
 
 
 def test_serve_module_without_device_fails_without_a_gpu():
