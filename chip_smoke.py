@@ -28,7 +28,17 @@ kernel's launch count set to 0 just before and read just after:
   from abstract inputs and simulated (16); 2 of its layers in fp32 through
   the kernel against attention_ref in its place (17); and the ``Trainer``
   with an injected failure, restoring from its checkpoint on the card, and
-  ``python -m repro_torch.launch.train --smoke`` (18).
+  ``python -m repro_torch.launch.train --smoke`` (18);
+* the other model families — ``launch.serve.run`` on the same requests:
+  qwen3-moe-30b-a3b FULL (61 GB of bf16 weights, 128 experts; phase 19)
+  with the flash kernel held to attention_ref at GQA group 8, ``moe_ffn``
+  held to an independent plain version in fp32, and the served model's
+  first 2 layers in fp32 against the CPU; zamba2-7b, internvl2-2b,
+  rwkv6-1.6b and seamless-m4t-large-v2 FULL (20), the flash kernel held to
+  attention_ref on every served call (head dim 112, the encoder's
+  non-causal attention, cross-attention at s = 2048 and s = 1 against 1024
+  frames); every new arch's smoke config, also as ``python -m
+  repro_torch.launch.serve --arch <arch> --smoke`` (21).
 
 Then it times each kernel (fp32, bf16 and fp16), its plain version and the
 one PyTorch library call that computes the same function, beside the card's
@@ -98,8 +108,11 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_START = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"== {title} ==", flush=True)
+    print(f"== {title} == ({time.perf_counter() - _START:.1f} s in)", flush=True)
 
 
 def _bf16(t):
@@ -108,7 +121,12 @@ def _bf16(t):
     return t.bfloat16().to(t.dtype)
 
 
+#: the card's name and power limit, as nvidia-smi gives them (phase 1)
+CARD = ""
+
+
 def device_phase():
+    global CARD
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     idle = _power_draw(None, 3.0)      # before this process runs anything
@@ -120,7 +138,8 @@ def device_phase():
     phase("1. device")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
           f"count {torch.cuda.device_count()}")
-    print(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     print(f"  power.draw before any work: {len(idle)} samples, mean "
           f"{sum(idle) / len(idle):.1f} W (min {min(idle):.1f}, max {max(idle):.1f})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -892,7 +911,8 @@ def _flash_probe(plain, tol=BF16_TOL):
     calls, on the q, k, v the model really makes (in a training step, the
     backward's recompute too).  ``plain=False``:
     run the kernel, hold each call's output to ``attention_ref`` row by row
-    within ``tol`` (``.rows``), and note how hard the layer's attention is (``.hardness``:
+    within ``tol`` (``.rows``), with each call's q and k shapes and mask
+    (``.shapes``), and note how hard the layer's attention is (``.hardness``:
     the spread of q.k/sqrt(d) and the mean largest probability, over the
     last 128 queries of head 0).  ``plain=True``: answer every call with
     ``attention_ref``, so the model runs without the kernel."""
@@ -904,7 +924,7 @@ def _flash_probe(plain, tol=BF16_TOL):
     class Probe(TorchDispatchMode):
         def __init__(self):
             super().__init__()
-            self.rows, self.hardness = [], []
+            self.rows, self.hardness, self.shapes = [], [], []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
@@ -917,12 +937,14 @@ def _flash_probe(plain, tol=BF16_TOL):
                 return ref
             out = func(*args, **kwargs)
             self.rows.append(_close_rows(out, ref, tol))
-            s, d = q.shape[2], q.shape[3]
+            self.shapes.append((tuple(q.shape), tuple(k.shape), bool(mask["causal"])))
+            s, t, d = q.shape[2], k.shape[2], q.shape[3]
             n = min(128, s)
             sc = (q[:, 0, -n:].float() @ k[:, 0].float().transpose(-1, -2)) / d ** 0.5
-            sc = sc.masked_fill(torch.arange(s, device=q.device)[None, :]
-                                > torch.arange(s - n, s, device=q.device)[:, None],
-                                float("-inf"))
+            if mask["causal"]:
+                sc = sc.masked_fill(torch.arange(t, device=q.device)[None, :]
+                                    > torch.arange(s - n, s, device=q.device)[:, None],
+                                    float("-inf"))
             p_max = torch.softmax(sc, -1).amax(-1).mean()
             self.hardness.append((float(sc[sc.isfinite()].std()), float(p_max)))
             return out
@@ -1932,6 +1954,380 @@ def analysis_phase(lenet):
           "the analysis CLI's JSON does not reconcile")
 
 
+# the model families of the reference beyond dense, served FULL on the same
+# requests as llama3-8b (batch 4, 2048-token prompts, 16 new tokens):
+# qwen3-moe-30b-a3b (phase 19) and the other four that fit one card (phase
+# 20); dbrx-132b FULL (263 GB of bf16 weights) needs four, so every new
+# arch's smoke config is served too (phase 21)
+MOE_ARCH = "qwen3-moe-30b-a3b"
+FAMILY_ARCHS = ("zamba2-7b", "internvl2-2b", "rwkv6-1.6b", "seamless-m4t-large-v2")
+SMOKE_ARCHS = (MOE_ARCH, "dbrx-132b", "internvl2-2b", "zamba2-7b", "rwkv6-1.6b",
+               "seamless-m4t-large-v2")
+# the MoE witness's layer, and the 2-layer fp32 witness's batch and length
+MOE_LAYER, WITNESS_BATCH, WITNESS_LEN = 24, 2, 128
+
+
+def _flash_per_prefill(cfg):
+    """The flash op's calls in one prefill: one per self-attention layer,
+    one per shared-block application for the hybrid, none for RWKV6, and for
+    the encoder-decoder one per encoder layer and two per decoder layer
+    (self and cross)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    if cfg.family in ("encdec", "audio"):
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def _serve_full(arch, smoke=False):
+    """``arch`` served through ``launch.serve.run`` (bf16, random weights
+    from seed 0) on the llama3-8b requests, every kernel's count set to 0
+    just before and read just after; then a warm repeat of the same
+    requests (prefill ms, decode tok/s, peak memory, which must stay under
+    the card's), the flash launches of one prefill, and a profile of one
+    prefill and of four decode steps (the device's busy share)."""
+    import gc
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
+    from repro_torch.launch import serve
+    from repro_torch.runtime.server import Server, ServeStats
+    from repro_torch.runtime.steps import decode_step, prefill_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 1e9
+    kerns = {"tiled_matmul": tiled_matmul, "winograd_conv": winograd_conv,
+             "winograd_tiles": winograd_tiles, "flash_attention": flash_attention_fwd}
+    for kern in kerns.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.run(arch, smoke=smoke, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    max_new=SERVE_NEW, device="cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kerns.items()}
+    peak_first = torch.cuda.max_memory_allocated() / 1e9
+    server, model, params, requests = res["server"], res["model"], res["params"], res["requests"]
+    cfg, tokens = model.cfg, res["tokens"]
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    check(tokens.shape[0] == SERVE_BATCH and 1 <= tokens.shape[1] <= SERVE_NEW
+          and 0 <= tokens.min() and tokens.max() < cfg.vocab_size,
+          f"{arch}: generated tokens {tokens.shape}, in [{tokens.min()}, {tokens.max()}]")
+    check(launches["flash_attention"] >= _flash_per_prefill(cfg),
+          f"{arch}: flash launched {launches['flash_attention']} times, expected >= "
+          f"{_flash_per_prefill(cfg)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    server.stats = ServeStats()
+    server.generate(requests, max_new_tokens=SERVE_NEW)
+    warm = server.stats
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(max(peak, peak_first) < card_gb,
+          f"{arch}: peak memory {max(peak, peak_first):.2f} GB passes the card's {card_gb:.2f}")
+    window = {}
+    flash_attention_fwd.launches = 0
+    busy = _profile("prefill", lambda: prefill_step(model, params, requests), 1, top=6,
+                    window=window)
+    per_prefill = flash_attention_fwd.launches
+    check(per_prefill == _flash_per_prefill(cfg),
+          f"{arch}: {per_prefill} flash launches a prefill, expected {_flash_per_prefill(cfg)}")
+    _, cache = prefill_step(model, params, requests)
+    state = {"cache": Server._grow_cache(cache, 4)}
+    del cache
+    last = res["prompts"][:, -1:]
+
+    def one_decode():
+        state["cache"] = decode_step(model, params, state["cache"], {"token": last})[1]
+
+    dwindow = {}
+    dbusy = _profile("decode step", one_decode, 4, top=6, window=dwindow)
+    del state
+    steps = max(warm.tokens_out // SERVE_BATCH, 1)
+    out = {"arch": arch, "weights_gb": weights_gb, "first_call_s": first_s,
+           "prefill_ms": warm.prefill_s * 1e3, "decode_tok_per_s": warm.decode_tok_per_s,
+           "decode_step_ms": warm.decode_s * 1e3 / steps,
+           "peak_gb": peak, "peak_first_call_gb": peak_first, "launches": launches,
+           "flash_per_prefill": per_prefill, "prefill_busy_ms": busy,
+           "prefill_window_ms": window.get("ms"), "decode_busy_ms": dbusy,
+           "decode_window_ms": dwindow.get("ms")}
+    share = (f"{100 * busy / window['ms']:.1f}%" if busy and window.get("ms")
+             else "not measured")
+    print(f"  {arch}{' smoke' if smoke else ' FULL'} ({cfg.family}, {cfg.num_layers} layers, "
+          f"d {cfg.d_model}, {weights_gb:.2f} GB of {cfg.dtype} weights; {before:.2f} GB in "
+          f"use before): first call {first_s:.1f} s, launches {json.dumps(launches)}; warm: "
+          f"prefill {out['prefill_ms']:.1f} ms (device busy {share}), decode "
+          f"{out['decode_tok_per_s']:.1f} tok/s ({out['decode_step_ms']:.2f} ms a step), "
+          f"peak memory {peak:.2f} GB ({peak_first:.2f} GB in the first call, init "
+          f"included; the card holds {card_gb:.2f}); flash {per_prefill} a prefill; "
+          f"{CARD}")
+    return out, res
+
+
+def _probe_prefill(arch, res, decode=False):
+    """The flash kernel held to attention_ref on every call of one served
+    prefill (and, with ``decode``, of a decode step after it), by mask and
+    shape."""
+    from repro_torch.runtime.server import Server
+    from repro_torch.runtime.steps import decode_step, prefill_step
+    model, params, requests = res["model"], res["params"], res["requests"]
+    probe = _flash_probe(plain=False)
+    with probe:
+        _, cache = prefill_step(model, params, requests)
+        if decode:
+            decode_step(model, params, Server._grow_cache(cache, 1),
+                        {"token": res["prompts"][:, -1:]})
+    del cache
+    kinds = {}
+    for (qs, ks, causal), row in zip(probe.shapes, probe.rows):
+        b, h, s, d = qs
+        key = (f"h{h} kv{ks[1]} s={s} t={ks[2]} d{d} "
+               f"{'causal' if causal else 'non-causal'}")
+        kinds.setdefault(key, []).append(row)
+    for key, rows in kinds.items():
+        print(f"  {arch} flash on the served q, k, v, {len(rows)} calls at {key}: max_abs_err "
+              f"{max(r[0] for r in rows):.3e}, worst row {max(r[1] for r in rows):.3e} "
+              f"(tol {BF16_TOL})")
+        check(all(r[2] for r in rows),
+              f"flash disagrees with attention_ref on {arch}'s calls at {key}")
+    return {k: max(r[1] for r in v) for k, v in kinds.items()}
+
+
+def _moe_plain(p, cfg, x, cap):
+    """An independent plain version of ``moe_ffn`` in fp32, token by token:
+    the router's top-k with renormalized gates; per sequence and expert, the
+    first ``cap`` (token, choice) pairs in token-major order are kept (the
+    rank of a pair among its expert's pairs is a running count); each kept
+    pair adds its gate times its expert's SwiGLU of the token.  Returns
+    (out (b, s, d) fp32, kept (b, s, k) bool)."""
+    import torch
+    import torch.nn.functional as F
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    logits = torch.einsum("bsd,de->bse", x.float(), p["router"].float())
+    gates, idx = torch.topk(torch.softmax(logits, -1), k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    onehot = F.one_hot(idx.reshape(b, s * k), e)                  # token-major pairs
+    rank = (onehot.cumsum(1) - onehot).mul(onehot).sum(-1)        # pairs before, same expert
+    kept = (rank < cap).reshape(b, s, k)
+    out = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
+    xf = x.float()
+    for ex in range(e):
+        bi, ti, ci = torch.nonzero((idx == ex) & kept, as_tuple=True)
+        if not len(bi):
+            continue
+        xt = xf[bi, ti]
+        y = (F.silu(xt @ p["w_gate"][ex].float()) * (xt @ p["w_up"][ex].float())
+             ) @ p["w_down"][ex].float()
+        out.index_put_((bi, ti), gates[bi, ti, ci, None] * y, accumulate=True)
+    return out, kept
+
+
+def moe_serve_phase():
+    """Phase A: qwen3-moe-30b-a3b FULL (48 layers, 128 experts of d_ff 768,
+    top-8; 32 query heads over 4 kv heads, the flash kernel's first GQA
+    group of 8) in bf16 through ``launch.serve.run``; the flash kernel held
+    to attention_ref on every layer's served q, k, v; ``moe_ffn`` of one
+    layer's served input held to an independent plain version in fp32 (the
+    kept sets equal, the outputs within BF16_TOL of each row's scale); then
+    its first 2 layers at full width, upcast to fp32, on the card against
+    the port's CPU path on the same weights, and decode against prefill at
+    no-drop capacity."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import config as C
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime.steps import prefill_step
+    phase(f"19. main path: serve {MOE_ARCH} FULL, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+          f"{SERVE_NEW} new tokens; flash, MoE and fp32 witnesses")
+    out, res = _serve_full(MOE_ARCH)
+    cfg, model, params = res["model"].cfg, res["model"], res["params"]
+    expert_gb = sum(t.numel() * t.element_size() for key, t in params["layers"]["moe"].items()
+                    if key != "router") / 1e9
+    bound_ms = expert_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    out["expert_gb"], out["decode_bound_ms"] = expert_gb, bound_ms
+    print(f"  decode reads every expert's weights a step (no-drop: one slot per sequence "
+          f"and expert): {expert_gb:.2f} GB, at least {bound_ms:.2f} ms at 3.35 TB/s; "
+          f"measured {out['decode_step_ms']:.2f} ms a step")
+    out["flash_worst"] = _probe_prefill(MOE_ARCH, res)
+
+    # moe_ffn on one layer's served input against the plain version
+    orig, seen = moe_mod.moe_ffn, []
+
+    def record(p, c, x, capacity_factor=moe_mod.CAPACITY_FACTOR):
+        if len(seen) == MOE_LAYER:
+            seen.append(x.clone())
+        else:
+            seen.append(None)
+        return orig(p, c, x, capacity_factor=capacity_factor)
+
+    moe_mod.moe_ffn = record
+    try:
+        prefill_step(model, params, res["requests"])
+    finally:
+        moe_mod.moe_ffn = orig
+    x = seen[MOE_LAYER]
+    p_l = {k: v[MOE_LAYER] for k, v in params["layers"]["moe"].items()}
+    cap = moe_mod._capacity(x.shape[1], cfg, model.moe_capacity)
+    slot = moe_mod.route(p_l, cfg, x, cap)[3]
+    kept = (slot < cfg.num_experts * cap).reshape(x.shape[:2] + (cfg.experts_per_token,))
+    want, want_kept = _moe_plain(p_l, cfg, x, cap)
+    dropped = int((~want_kept).sum())
+    # as served (bf16): the whole output's relative error; in fp32 (the
+    # layer's weights and input upcast): every row within F32_TOL of its own
+    y, _ = orig(p_l, cfg, x, capacity_factor=model.moe_capacity)
+    rel_bf16 = float((y.float() - want).norm() / want.norm())
+    y32, _ = orig(_upcast(p_l), dataclasses.replace(cfg, dtype="float32"), x.float(),
+                  capacity_factor=model.moe_capacity)
+    err, worst, ok = _close_rows(y32, want, F32_TOL)
+    print(f"  moe_ffn on layer {MOE_LAYER}'s served input {tuple(x.shape)} bf16, capacity "
+          f"{cap} (factor {model.moe_capacity}): {dropped} of {want_kept.numel()} (token, "
+          f"choice) pairs dropped; kept sets equal: {bool(torch.equal(kept, want_kept))}; "
+          f"against the fp32 plain version: bf16 output relative error {rel_bf16:.3e} (tol "
+          f"{BF16_TOL}); fp32 output max_abs_err {err:.3e}, worst row {worst:.3e} of its "
+          f"max |ref| (tol {F32_TOL})")
+    check(bool(torch.equal(kept, want_kept)),
+          "moe_ffn keeps other (token, choice) pairs than the plain version")
+    check(dropped > 0, "the served prefill dropped no token at capacity 1.25")
+    check(rel_bf16 <= BF16_TOL, f"moe_ffn (bf16) disagrees with the plain version: {rel_bf16}")
+    check(ok, f"moe_ffn (fp32) disagrees with the plain version: worst row {worst}")
+    out["moe_witness"] = {"dropped": dropped, "pairs": want_kept.numel(),
+                          "bf16_rel_err": rel_bf16, "fp32_max_abs_err": err,
+                          "fp32_worst_row": worst}
+    # the served model's first 2 layers (with its embedding, final norm and
+    # head) at full width, upcast to fp32
+    params2 = _upcast(dict(params, layers=_first_layers(params["layers"], 2)))
+    del res, model, params, seen, x, y, y32, want, p_l
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2 layers at full width in fp32: the card against the CPU, and decode
+    # against prefill at no-drop capacity
+    cfg2 = dataclasses.replace(C.get(MOE_ARCH).full, num_layers=2, dtype="float32")
+    model2 = build_model(cfg2)
+    tokens = make_prompts(cfg2, WITNESS_BATCH, WITNESS_LEN, torch.device("cuda"))
+    logits, cache = prefill_step(model2, params2, {"tokens": tokens})
+    params_cpu = _to_cpu(params2)
+    t0 = time.perf_counter()
+    logits_cpu, cache_cpu = prefill_step(model2, params_cpu, {"tokens": tokens.cpu()})
+    cpu_s = time.perf_counter() - t0
+    rel = {"logits": _rel(logits.cpu(), logits_cpu)}
+    for key in ("k", "v"):
+        for layer in range(2):
+            rel[f"{key}{layer}"] = _rel(cache[key][layer].cpu(), cache_cpu[key][layer])
+    del params_cpu, cache, cache_cpu
+    model2.moe_capacity = 0.0
+    rel_decode, _ = _decode_vs_prefill(model2, params2, tokens)
+    model2.moe_capacity = moe_mod.CAPACITY_FACTOR
+    rel_decode_drop, _ = _decode_vs_prefill(model2, params2, tokens)
+    print(f"  {MOE_ARCH} 2 layers full width fp32, prefill of {WITNESS_BATCH} x {WITNESS_LEN}: "
+          f"the card against the CPU ({cpu_s:.1f} s there), relative error: last logits "
+          f"{rel['logits']:.3e}, K cache {rel['k0']:.3e} / {rel['k1']:.3e}, V cache "
+          f"{rel['v0']:.3e} / {rel['v1']:.3e} (layer 0 / 1; tol {F32_TOL}); decode of the last token after a prefill of the rest against the "
+          f"whole prefill: {rel_decode:.3e} at no-drop capacity (tol {F32_TOL}), "
+          f"{rel_decode_drop:.3e} at 1.25 (not checked: dropped tokens differ)")
+    check(all(v <= F32_TOL for v in rel.values()),
+          f"the card's fp32 prefill disagrees with the CPU's: {rel}")
+    check(rel_decode <= F32_TOL, f"decode disagrees with prefill at no-drop: {rel_decode}")
+    out["fp32_witness"] = dict(rel, decode_vs_prefill=rel_decode,
+                               decode_vs_prefill_at_1_25=rel_decode_drop)
+    del model2, params2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _first_layers(tree, n):
+    """The first ``n`` layers of a stacked (L, ...) parameter tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def families_serve_phase():
+    """Phase B: zamba2-7b, internvl2-2b (256 frontend rows), rwkv6-1.6b and
+    seamless-m4t-large-v2 (1024 frames) FULL in bf16 through
+    ``launch.serve.run`` on the same requests, each freed before the next;
+    the flash kernel held to attention_ref on every call of a served
+    prefill (and, for seamless, of a decode step's cross-attention)."""
+    import gc
+
+    import torch
+    phase(f"20. main path: serve {', '.join(FAMILY_ARCHS)} FULL, batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, {SERVE_NEW} new tokens")
+    outs = {}
+    for arch in FAMILY_ARCHS:
+        out, res = _serve_full(arch)
+        if out["flash_per_prefill"]:
+            # the encoder-decoder's decode runs the cross-attention too
+            out["flash_worst"] = _probe_prefill(
+                arch, res, decode=res["model"].cfg.family in ("encdec", "audio"))
+        outs[arch] = out
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs
+
+
+def smoke_serve_phase():
+    """Phase C: every new arch's smoke config (head_dim 16) served on the
+    card, in this process through ``launch.serve.run`` with the flash calls
+    held to attention_ref, and as ``python -m repro_torch.launch.serve
+    --arch <arch> --smoke`` in one process each, all at once."""
+    import os
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch import serve
+    phase(f"21. serve the smoke configs of {', '.join(SMOKE_ARCHS)} on the card")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {arch: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve",
+                                     "--arch", arch, "--smoke"], env=env, text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for arch in SMOKE_ARCHS}
+    outs = {}
+    try:
+        for arch in SMOKE_ARCHS:
+            flash_attention_fwd.launches = 0
+            res = serve.run(arch, smoke=True, device="cuda")
+            launches = flash_attention_fwd.launches
+            torch.cuda.synchronize()
+            cfg, tokens = res["model"].cfg, res["tokens"]
+            check(tokens.shape[0] == 4 and launches >= _flash_per_prefill(cfg),
+                  f"{arch} smoke: flash {launches} launches, tokens {tokens.shape}")
+            worst = _probe_prefill(f"{arch} smoke", res) if launches else {}
+            outs[arch] = {"flash_launches": launches, "flash_worst": worst}
+        for arch, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            line = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+            print(f"  python -m repro_torch.launch.serve --arch {arch} --smoke: rc "
+                  f"{proc.returncode}: {line}")
+            check(proc.returncode == 0 and line.startswith("generated (4, 16) tokens"),
+                  f"launch.serve --arch {arch} --smoke failed: {stderr[-2000:]}")
+            outs[arch]["cli"] = line
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: FAIL: {SRC / 'repro_torch'} not found; run from a "
@@ -1960,17 +2356,25 @@ def main() -> int:
         train["sim"] = train_sim_phase(train)
         train["witness"] = train_witness_phase()
         trainer_phase()
+        families = {MOE_ARCH: moe_serve_phase()}
+        families.update(families_serve_phase())
+        smokes = smoke_serve_phase()
         flash = kernels[-1]
         flash["launches_by_path"] = {
             f"serve {SERVE_ARCH} FULL": serve_launches["flash_attention"],
             f"serve {GEMMA_ARCH} FULL": gemma["launches"],
             f"train {TRAIN_ARCH} FULL ({TRAIN_STEPS} steps)":
                 train["launches"]["flash_attention"]}
+        for arch, out in families.items():
+            flash["launches_by_path"][f"serve {arch} FULL"] = out["launches"]["flash_attention"]
+            flash["launches_by_path"][f"one {arch} FULL prefill"] = out["flash_per_prefill"]
+        for arch, out in smokes.items():
+            flash["launches_by_path"][f"serve {arch} smoke"] = out["flash_launches"]
         flash["attention_backward_ms_per_train_step"] = train["attn_bwd_ms_step"]
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_analysis.json").write_text(json.dumps(
-            {"correlation": correlation, "power": power, "gemma": gemma, "train": train},
-            indent=1))
+            {"correlation": correlation, "power": power, "gemma": gemma, "train": train,
+             "families": families, "smoke": smokes}, indent=1, default=str))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -70,7 +70,8 @@ _map("bitcast", _aten.view.default, _aten._unsafe_view.default,
      _aten.expand.default, _aten.unsqueeze.default, _aten.squeeze.dim,
      _aten.alias.default, _aten.select.int, _aten.slice.Tensor,
      _aten.unfold.default, _aten.detach.default, _aten.view_as_real.default,
-     _aten._conj.default, _aten.split.Tensor, _aten.empty.memory_format,
+     _aten._conj.default, _aten.split.Tensor, _aten.split_with_sizes.default,
+     _aten.empty.memory_format,
      _aten.empty_like.default)
 _map("copy", _aten.clone.default, _aten.copy_.default,
      _aten.lift_fresh_copy.default)
@@ -81,8 +82,10 @@ _map("subtract", _aten.sub.Tensor, _aten.sub_.Tensor, _aten.rsub.Scalar)
 _map("multiply", _aten.mul.Tensor, _aten.mul_.Scalar, _aten.mul_.Tensor,
      _aten.mul.Scalar,
      _aten.pow.Tensor_Scalar,                       # x ** 2, as XLA lowers it
-     _aten._softmax_backward_data.default)          # y * (g - sum(g * y))
+     _aten._softmax_backward_data.default,          # y * (g - sum(g * y))
+     _aten.tanh_backward.default)                   # g * (1 - y * y)
 _map("divide", _aten.div.Scalar, _aten.div.Tensor, _aten.div_.Tensor,
+     _aten.div.Tensor_mode,
      _aten.reciprocal.default)
 _map("sqrt", _aten.sqrt.default, _aten.sqrt_.default)
 _map("clamp", _aten.clamp.default)
@@ -96,8 +99,10 @@ _map("cosine", _aten.cos.default)
 _map("sine", _aten.sin.default)
 _map("tanh", _aten.tanh.default)
 _map("logistic", _aten.silu.default,               # x * sigmoid(x)
+     _aten.sigmoid.default, _aten.sigmoid_backward.default,
      _aten.silu_backward.default)
-_map("compare", _aten.eq.Tensor, _aten.ge.Scalar, _aten.lt.Scalar, _aten.le.Tensor)
+_map("compare", _aten.eq.Tensor, _aten.ge.Scalar, _aten.lt.Scalar, _aten.le.Tensor,
+     _aten.lt.Tensor)
 _map("and", _aten.bitwise_and_.Tensor)
 _map("select", _aten.where.self, _aten.threshold_backward.default)
 _map("reduce", _aten.sum.default, _aten.sum.dim_IntList, _aten.mean.default,
@@ -107,7 +112,8 @@ _map("reduce-window", _aten.max_pool2d_with_indices.default)
 _map("select-and-scatter", _aten.max_pool2d_with_indices_backward.default)
 _map("gather", _aten.index.Tensor)
 _map("scatter", _aten.index_put.default, _aten.unfold_backward.default)
-_map("pad", _aten.constant_pad_nd.default, _aten.slice_backward.default)
+_map("pad", _aten.constant_pad_nd.default, _aten.slice_backward.default,
+     _aten.select_backward.default)
 _map("concatenate", _aten.cat.default, _aten.stack.default)
 _map("reverse", _aten.flip.default)
 _map("iota", _aten.arange.default, _aten.arange.start_step)
@@ -116,6 +122,19 @@ _map("broadcast", _aten.zeros.default, _aten.zeros_like.default, _aten.zero_.def
      _aten.scalar_tensor.default, _aten.full.default, _aten.ones.default)
 _map("fft", _aten._fft_r2c.default, _aten._fft_c2r.default,
      _aten._fft_c2c.default)
+# the model families' routing and scans: top-k and the dispatch sort, the
+# binary search of the expert segments, the gathers and scatters of the
+# dispatch and their gradients, and the scans' cumulative sums
+_map("sort", _aten.topk.default, _aten.sort.stable, _aten.sort.default)
+_map("compare", _aten.searchsorted.Tensor)
+_map("gather", _aten.gather.default)
+_map("scatter", _aten.scatter.src, _aten.scatter_.src, _aten.scatter_add.default,
+     _aten.scatter_add_.default)
+_map("cumsum", _aten.cumsum.default)
+_map("broadcast", _aten.repeat.default, _aten.eye.default, _aten.full_like.default)
+_map("select", _aten.tril.default)
+_map("log1p", _aten.softplus.default)               # log(1 + exp(x))
+_map("logistic", _aten.softplus_backward.default)   # g * sigmoid(x)
 
 
 def hlo_type(val: Any) -> str:
@@ -245,8 +264,21 @@ class _Emitter:
 
 # -- special handlers ---------------------------------------------------
 
+def _outer(em: _Emitter, node: torch.fx.Node, a: torch.fx.Node) -> bool:
+    """Emit a product whose contracted dim has extent 1 (an outer product,
+    as autograd runs the backward of a matrix-vector product) as a
+    ``multiply``: it sums nothing, and XLA emits the same product so."""
+    if int(em.val(a).shape[-1]) != 1:
+        return False
+    em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "multiply",
+                             em.tensor_operands(node))
+    return True
+
+
 def _dot(em: _Emitter, node: torch.fx.Node) -> None:
     a, b = node.args[0], node.args[1]
+    if _outer(em, node, a):
+        return
     em.names[node] = em.inst(
         node.name, hlo_type(em.val(node)), "dot",
         [em.names[a], em.names[b]],
@@ -255,6 +287,8 @@ def _dot(em: _Emitter, node: torch.fx.Node) -> None:
 
 def _addmm(em: _Emitter, node: torch.fx.Node) -> None:
     bias, a, b = node.args[:3]
+    if _outer(em, node, a):
+        return
     em.names[node] = em.inst(
         node.name, hlo_type(em.val(node)), "dot",
         [em.names[a], em.names[b], em.names[bias]],
@@ -263,6 +297,8 @@ def _addmm(em: _Emitter, node: torch.fx.Node) -> None:
 
 def _bmm(em: _Emitter, node: torch.fx.Node) -> None:
     a, b = node.args[:2]
+    if _outer(em, node, a):
+        return
     em.names[node] = em.inst(
         node.name, hlo_type(em.val(node)), "dot",
         [em.names[a], em.names[b]],

@@ -21,7 +21,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.runtime.server import Server
 
-PARAM_SEED, PROMPT_SEED, TEMPERATURE = 0, 1, 0.7
+PARAM_SEED, PROMPT_SEED, FRONTEND_SEED, TEMPERATURE = 0, 1, 2, 0.7
 
 
 def make_prompts(cfg: C.ModelConfig, batch: int, prompt_len: int,
@@ -32,13 +32,25 @@ def make_prompts(cfg: C.ModelConfig, batch: int, prompt_len: int,
                          device=device)
 
 
+def make_frontend(cfg: C.ModelConfig, batch: int, device: torch.device,
+                  seed: int = FRONTEND_SEED) -> torch.Tensor:
+    """(batch, frontend_seq, d_model) bf16 standard-normal rows, drawn on
+    ``device``: the stub of a vision or audio encoder's output that the
+    reference's serve launcher draws for a config with a frontend."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, cfg.frontend_seq, cfg.d_model), generator=gen,
+                       device=device).to(torch.bfloat16)
+
+
 def run(arch: str, *, smoke: bool = False, batch: int = 4, prompt_len: int = 32,
         max_new: int = 16, device: Optional[Union[str, torch.device]] = None
         ) -> Dict[str, Any]:
     """Build the model with seeded random weights and serve one prompt batch.
 
-    Returns the server (with its stats), the generated token ids, the
-    prompts, the model and its parameters.
+    A config with a frontend (internvl2-2b, seamless-m4t-large-v2) gets
+    its ``frontend_emb`` rows from :func:`make_frontend`.  Returns the
+    server (with its stats), the generated token ids, the prompts, the whole
+    request batch, the model and its parameters.
     """
     dev = resolve_device(device)
     entry = C.get(arch)
@@ -49,8 +61,11 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4, prompt_len: int = 32,
     params = model.init(seed=PARAM_SEED, device=dev)
     server = Server(rc, params, temperature=TEMPERATURE)
     prompts = make_prompts(model_cfg, batch, prompt_len, dev)
-    out = server.generate({"tokens": prompts}, max_new_tokens=max_new)
-    return {"server": server, "tokens": out, "prompts": prompts,
+    requests = {"tokens": prompts}
+    if model_cfg.frontend != "none":
+        requests["frontend_emb"] = make_frontend(model_cfg, batch, dev)
+    out = server.generate(requests, max_new_tokens=max_new)
+    return {"server": server, "tokens": out, "prompts": prompts, "requests": requests,
             "model": model, "params": params}
 
 

@@ -1,14 +1,14 @@
 """Attention: GQA + RoPE + causal / sliding-window / cross, train & decode paths.
 
-The port of ``repro.models.attention`` for decoder self-attention (the
-reference's cross-attention comes with the encoder-decoder family), with
-the same parameter names and the same (b, s, heads, head_dim) activation
-layout.  Where the reference
-runs its plain ``sdpa`` (or ``chunked_sdpa`` at s >= 4096) for causal
-self-attention from position 0 — :func:`attention` and
-:func:`attention_prefill` — the port calls the ``repro_torch::flash_attention``
-op instead, at every length: the hand kernel on CUDA, its plain version on
-the CPU.  So the reference's ``chunked_sdpa`` has no counterpart here.
+The port of ``repro.models.attention``, with the same parameter names and
+the same (b, s, heads, head_dim) activation layout.  Where the reference
+runs its plain ``sdpa`` (or ``chunked_sdpa`` at s >= 4096) over a whole
+sequence — self-attention from position 0, causal or not, in
+:func:`attention` and :func:`attention_prefill`, and cross-attention
+(``kv_source``: s queries against t other rows, no mask, no RoPE) — the
+port calls the ``repro_torch::flash_attention`` op instead, at every
+length: the hand kernel on CUDA, its plain version on the CPU.  So the
+reference's ``chunked_sdpa`` has no counterpart here.
 Decode attention (one query against the cache) stays plain PyTorch math, as
 in the reference, which runs no Pallas kernel there.
 """
@@ -74,7 +74,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, h, d)
 
 
-def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int, softcap: float) -> torch.Tensor:
     """(b, s, heads, d) in and out, through the flash op on head-major views
     (the kernel takes strides: no transpose copies on the card)."""
@@ -85,21 +85,31 @@ def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
-              window: int = 0) -> torch.Tensor:
-    """Full-sequence self-attention (train / forward).
+              window: int = 0, kv_source: Optional[torch.Tensor] = None,
+              use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence attention (train / prefill).  ``kv_source`` (b, t, d)
+    given: cross-attention, every query against every row of it, without
+    RoPE (``causal`` and ``window`` are ignored, as in the reference).
 
-    The mask goes by sequence index, so ``positions`` must be 0..s-1, as
-    every caller in the reference passes them.
+    The self-attention mask goes by sequence index, so ``positions`` must be
+    0..s-1, as every caller in the reference passes them.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    src = x if kv_source is None else kv_source
+    t = src.shape[1]
     q = dense(x, params["wq"], params.get("bq")).reshape(b, s, h, hd)
-    k = dense(x, params["wk"], params.get("bk")).reshape(b, s, kv, hd)
-    v = dense(x, params["wv"], params.get("bv")).reshape(b, s, kv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = _self_attention(q, k, v, causal=causal, window=window,
-                          softcap=cfg.logit_softcap)
+    k = dense(src, params["wk"], params.get("bk")).reshape(b, t, kv, hd)
+    v = dense(src, params["wv"], params.get("bv")).reshape(b, t, kv, hd)
+    if kv_source is None:
+        if use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        out = _flash(q, k, v, causal=causal, window=window,
+                              softcap=cfg.logit_softcap)
+    else:
+        out = _flash(q, k, v, causal=False, window=0,
+                              softcap=cfg.logit_softcap)
     return dense(out.reshape(b, s, h * hd), params["wo"])
 
 
@@ -114,7 +124,7 @@ def attention_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     v = dense(x, params["wv"], params.get("bv")).reshape(b, s, kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = _self_attention(q, k, v, causal=True, window=window,
+    out = _flash(q, k, v, causal=True, window=window,
                           softcap=cfg.logit_softcap)
     out = dense(out.reshape(b, s, h * hd), params["wo"])
     return out, (k, v)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -56,10 +56,15 @@ class Server:
         return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
     @staticmethod
-    def _grow_cache(cache: Mapping[str, Any], extra: int) -> Dict[str, Any]:
-        """Pad the (L, b, S, kv, hd) K/V caches along S so decode has
-        capacity for ``extra`` new positions."""
-        return {key: F.pad(v, (0, 0, 0, 0, 0, extra)) if key in ("k", "v") else v
+    def _grow_cache(cache: Any, extra: int) -> Any:
+        """Pad the KV caches (rank-5 (L, b, S, kv, hd) leaves named k/v, at
+        any depth of the cache tree) along S so decode has capacity for
+        ``extra`` new positions; O(1) recurrent states need no growth."""
+        if not isinstance(cache, Mapping):
+            return cache
+        return {key: (F.pad(v, (0, 0, 0, 0, 0, extra))
+                      if key in ("k", "v") and isinstance(v, torch.Tensor) and v.dim() == 5
+                      else Server._grow_cache(v, extra))
                 for key, v in cache.items()}
 
     def generate(self, batch: Mapping[str, torch.Tensor], max_new_tokens: int = 16,

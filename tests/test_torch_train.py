@@ -566,7 +566,9 @@ def test_backward_pieces_cover_every_head(b, kvh, group, s, expect):
     assert backward_pieces(b, kvh, group, s, s) == expect
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "gemma3-27b", "qwen3-moe-30b-a3b",
+                                  "dbrx-132b", "internvl2-2b", "zamba2-7b", "rwkv6-1.6b",
+                                  "seamless-m4t-large-v2"])
 def test_analysis_cli_simulates_an_lm_train_step(arch, capsys):
     """``python -m repro_torch.analysis <lm>`` captures the train step at
     --seq-len x --batch from abstract inputs and reconciles its buckets."""
