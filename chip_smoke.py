@@ -38,7 +38,19 @@ kernel's launch count set to 0 just before and read just after:
   attention_ref on every served call (head dim 112, the encoder's
   non-causal attention, cross-attention at s = 2048 and s = 1 against 1024
   frames); every new arch's smoke config, also as ``python -m
-  repro_torch.launch.serve --arch <arch> --smoke`` (21).
+  repro_torch.launch.serve --arch <arch> --smoke`` (21);
+* the distributed layer — a one-rank NCCL process group and a (1, 1)
+  data x model mesh (``build_mesh``): one llama3-8b smoke train step through
+  the sharded ``train_bundle`` against the plain step from the same state;
+  qwen1.5-4b FULL trained by ``Trainer(rc, use_mesh=True)`` at seq 4096 and
+  the largest batch that fits, the flash kernel reached through
+  ``local_map`` on each rank's heads; ``quantize_int8``,
+  ``compressed_psum_mean`` over the NCCL group and ``pipeline_apply`` at one
+  stage (22); then ``python -m repro_torch.launch.dryrun`` as subprocesses on
+  the host for llama3-8b decode_32k and dbrx-132b train_4k (depth and
+  microbatches extrapolated from 4 cut traces) on the 256-rank mesh (23).
+  NCCL takes one rank a card, so the semantics of several ranks are held
+  on the CPU (gloo, ``tests/test_torch_distributed.py``).
 
 Then it times each kernel (fp32, bf16 and fp16), its plain version and the
 one PyTorch library call that computes the same function, beside the card's
@@ -1881,6 +1893,305 @@ def trainer_phase():
     torch.cuda.synchronize()
 
 
+def _start_nccl_group():
+    """A one-rank NCCL default process group on this card, its store on a
+    free local TCP port, with a timeout."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", port, 1, True, timeout=datetime.timedelta(seconds=120))
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+
+
+def _leaf_rel(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+
+# the sharded smoke step against the plain one from the same state (fp32):
+# the loss and the grad norm within MESH_TOL (relative); each leaf of the
+# new params, master, m and v within MESH_STATE_TOL of the leaf's largest
+# magnitude (on a (1, 1) mesh both run the same kernels in the same order)
+MESH_TOL = 1e-5
+MESH_STATE_TOL = 1e-6
+# the sharded trainer's steps on qwen1.5-4b FULL (the first is cold)
+MESH_STEPS = 3
+
+
+def mesh_phase(train):
+    """The distributed layer on the card (one rank: NCCL takes one rank a
+    card): the sharded smoke step against the plain one, qwen1.5-4b FULL
+    through ``Trainer(use_mesh=True)``, compression and the pipeline."""
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import config as C
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.distributed.compression import (compressed_psum_mean,
+                                                     dequantize_int8, quantize_int8)
+    from repro_torch.distributed.mesh import build_mesh
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.store import restore_resharded, save
+    from repro_torch.distributed.sharding import place
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import build_model
+    from repro_torch.optim import TrainState, abstract_state, tree_leaves
+    from repro_torch.runtime.steps import run_rules, init_train_state, train_bundle
+    from repro_torch.runtime.trainer import Trainer
+    phase("22. the distributed layer on the card: a one-rank NCCL group, a (1, 1) mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _start_nccl_group()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mesh = build_mesh(C.SMOKE_MESH, device="cuda")
+        print(f"  build_mesh: {mesh}, backend {dist.get_backend()}")
+
+        # the sharded smoke step against the plain one, from the same state
+        cfg = dataclasses.replace(C.get(SERVE_ARCH).smoke, dtype="float32")
+        rc = C.RunConfig(model=cfg, shape=C.ShapeConfig("smoke_train", 64, 4, "train"),
+                         mesh=C.SMOKE_MESH,
+                         train=C.TrainConfig(warmup_steps=2, learning_rate=1e-3))
+        model = build_model(cfg)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in next(batches_for(cfg, rc.shape, seed=0)).items()}
+        plain = init_train_state(rc, seed=0, device="cuda")
+        sharded = init_train_state(rc, seed=0, device="cuda", mesh=mesh)
+        _, batch_axes = model.train_input_specs(rc.shape)
+        plain, pm = train_bundle(rc).fn(plain, batch)
+        sharded, sm = train_bundle(rc, mesh).fn(
+            sharded, place(batch, batch_axes, run_rules(rc, model), mesh))
+        state_errs = {}
+        for part in ("params", "master", "m", "v"):
+            raw = rel = 0.0
+            pairs = list(zip(tree_leaves(getattr(sharded, part)),
+                             tree_leaves(getattr(plain, part))))
+            for a, b in pairs:
+                d = float((a.full_tensor() - b).abs().max())
+                raw = max(raw, d)
+                rel = max(rel, d / max(float(b.abs().max()), 1e-30))
+            state_errs[part] = {"max_abs": raw, "rel": rel, "leaves": len(pairs)}
+        loss_err = abs(float(sm["loss"]) - float(pm["loss"])) / abs(float(pm["loss"]))
+        gn_err = abs(float(sm["grad_norm"]) - float(pm["grad_norm"])) / float(pm["grad_norm"])
+        print(f"  {SERVE_ARCH} smoke step, fp32, sharded against plain: loss "
+              f"{float(sm['loss']):.6f} / {float(pm['loss']):.6f} (rel {loss_err:.2e}), grad "
+              f"norm rel {gn_err:.2e} (tol {MESH_TOL}); new state, worst max abs (of a leaf's "
+              f"scale) over each part's leaves: " + ", ".join(
+                  f"{k} {v['max_abs']:.3e} ({v['rel']:.2e}, {v['leaves']})"
+                  for k, v in state_errs.items()) + f" (tol {MESH_STATE_TOL})")
+        check(loss_err <= MESH_TOL and gn_err <= MESH_TOL
+              and all(v["rel"] <= MESH_STATE_TOL for v in state_errs.values()),
+              "the sharded smoke step disagrees with the plain one")
+        out["smoke"] = {"loss_rel": loss_err, "grad_norm_rel": gn_err, "state": state_errs}
+
+        # the sharded state saved (rank 0 writes, no leaf gathered on the
+        # device) and restored resharded onto the mesh
+        dleaves = [x for part in sharded[1:] for x in tree_leaves(part)
+                   if isinstance(x, DTensor)]
+        largest = max(x.to_local().numel() * x.element_size() for x in dleaves)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        save(os.path.join(tmp, "s"), 1, sharded)
+        torch.cuda.synchronize()
+        save_extra = torch.cuda.max_memory_allocated() - base
+        like = abstract_state(model.abstract())
+        back = TrainState(*restore_resharded(os.path.join(tmp, "s"), 1, like,
+                                             train_bundle(rc, mesh).in_shardings[0]))
+        same = all(torch.equal(a.to_local(), b.to_local()) and a.placements == b.placements
+                   for pa, pb in zip(sharded[1:], back[1:])
+                   for a, b in zip(tree_leaves(pa), tree_leaves(pb)))
+        print(f"  checkpoint of the sharded smoke state: {len(dleaves)} DTensor leaves, the "
+              f"device's peak rose {save_extra} B while saving (the largest shard {largest} B); "
+              f"restored resharded, every shard equal: {same}")
+        check(save_extra <= largest and same and int(back.step) == int(sharded.step),
+              "the sharded checkpoint grew the device's memory past a shard, or did not "
+              "restore")
+        out["save"] = {"device_extra_bytes": save_extra, "largest_shard_bytes": largest}
+        del plain, sharded, batch, back
+
+        # compression and the pipeline on the card
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        x = torch.randn(4096, 1024, generator=gen, device="cuda") * 3
+        q, sc = quantize_int8(x)
+        qc, scc = quantize_int8(x.cpu())
+        exact_q = bool(torch.equal(q.cpu(), qc)) and float(sc) == float(scc)
+        mean = compressed_psum_mean(x, mesh, "data")
+        mean_err = float((mean - dequantize_int8(q, sc)).abs().max())
+        ws = torch.randn(1, 64, 64, generator=gen, device="cuda") * 0.3
+        xm = torch.randn(6, 2, 64, generator=gen, device="cuda")
+        fn = lambda w, xb: torch.tanh(xb @ w)
+        pipe_err = float((pipeline_apply(fn, ws, xm, mesh=mesh, axis="data")
+                          - fn(ws[0], xm)).abs().max())
+        print(f"  quantize_int8 on the card bit-exact with the CPU: {exact_q}; "
+              f"compressed_psum_mean over the NCCL group against the dequantized tensor: "
+              f"max abs {mean_err:.2e}; pipeline_apply at S = 1, M = 6 against the stage: "
+              f"max abs {pipe_err:.2e}")
+        check(exact_q and mean_err == 0.0 and pipe_err == 0.0,
+              "compression or the pipeline disagrees on the card")
+        out.update(quantize_exact=exact_q, psum_err=mean_err, pipeline_err=pipe_err)
+
+        # qwen1.5-4b FULL through the trainer's mesh path, largest batch first
+        full = C.get(TRAIN_ARCH).full
+        batch_size = train["batch"]
+        while True:
+            rc = C.RunConfig(
+                model=full, shape=C.ShapeConfig("train_4k_cut", TRAIN_SEQ, batch_size, "train"),
+                mesh=C.SMOKE_MESH,
+                # no checkpoints: the state is 63 GB
+                train=C.TrainConfig(total_steps=MESH_STEPS, warmup_steps=2, checkpoint_every=0,
+                                    checkpoint_dir=os.path.join(tmp, "c")))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention_fwd.launches = 0
+            base_bytes = torch.cuda.memory_allocated()
+            trainer = Trainer(rc, use_mesh=True, device="cuda")
+            try:
+                t0 = time.perf_counter()
+                report = trainer.train()
+                torch.cuda.synchronize()
+                break
+            except torch.cuda.OutOfMemoryError:
+                del trainer
+                print(f"  batch {batch_size}: out of memory; one less")
+                batch_size -= 1
+                check(batch_size > 0, "qwen1.5-4b FULL does not fit at batch 1 on the mesh")
+        wall = time.perf_counter() - t0
+        peak_bytes = torch.cuda.max_memory_allocated()
+        peak_gb = peak_bytes / 1e9
+        times = trainer._step_times
+        warm_ms = times[1] * 1e3
+        flash_per_step = flash_attention_fwd.launches / MESH_STEPS
+        print(f"  Trainer(use_mesh=True), {TRAIN_ARCH} FULL, seq {TRAIN_SEQ}, batch "
+              f"{batch_size} (reduced: train_4k's {C.TRAIN_4K.global_batch} cut to "
+              f"{batch_size}, the largest that fits): losses "
+              f"{[round(x, 4) for x in report.losses]}, {wall:.1f}s in all")
+        print(f"  step times {[round(t * 1e3, 1) for t in times]} ms; warm step "
+              f"{warm_ms:.1f} ms beside phase 15's {train['warm_ms']:.1f} ms (batch "
+              f"{train['batch']}, no mesh); peak {peak_gb:.2f} GB beside phase 15's "
+              f"{train['peak_gb']:.2f} GB; {flash_per_step:.0f} flash launches a step "
+              f"(phase 15: {train['launches']['flash_attention'] / TRAIN_STEPS:.0f})")
+        check(report.steps_done == MESH_STEPS and all(math.isfinite(x) for x in report.losses),
+              f"the sharded trainer did not run {MESH_STEPS} finite steps: {report}")
+        check(flash_per_step == 2 * full.num_layers,
+              f"flash launched {flash_per_step} times a step on the mesh, expected "
+              f"{2 * full.num_layers} (a forward and a recompute a layer)")
+        out.update(batch=batch_size, warm_ms=warm_ms, step_ms=[t * 1e3 for t in times],
+                   peak_gb=peak_gb, run_peak_bytes=peak_bytes - base_bytes,
+                   flash_per_step=flash_per_step,
+                   flash_launches=flash_attention_fwd.launches, losses=report.losses,
+                   phase15_warm_ms=train["warm_ms"], phase15_peak_gb=train["peak_gb"])
+        del trainer, report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the dry-run cells phase 23 runs on the host: (arch, shape)
+DRYRUN_CELLS = (("llama3-8b", "decode_32k"), ("dbrx-132b", "train_4k"))
+#: the dry-run's memory record of phase 22's qwen1.5-4b step (traced on a
+#: one-rank fake group, the same (1, 1) mesh, batch and seq) against the
+#: card's peak in phase 22: the traced per-device bytes within this share
+DRYRUN_MEM_TOL = 0.15
+_DRYRUN_WITNESS = r"""
+import json, sys
+from repro_torch import config as C
+from repro_torch.distributed.mesh import build_mesh
+from repro_torch.launch import dryrun as D
+arch, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+D.start_fake_group(1)
+rc = C.RunConfig(model=C.get(arch).full, shape=C.ShapeConfig("train_4k_cut", seq, batch, "train"),
+                 mesh=C.SMOKE_MESH, train=C.TrainConfig(warmup_steps=2))
+rec = D.record(rc, build_mesh(C.SMOKE_MESH, device="cpu"))
+print(json.dumps({"memory": rec["memory"], "trace_s": rec["trace_s"],
+                  "extrapolated_from": rec.get("extrapolated_from")}))
+"""
+
+
+def dryrun_phase(meshed):
+    """``python -m repro_torch.launch.dryrun`` on the 256-rank production
+    mesh, as subprocesses on the host (a fake process group: no device),
+    and the dry-run's memory record of phase 22's step held to the card."""
+    import os
+    import shutil
+    phase("23. python -m repro_torch.launch.dryrun on the (16, 16) mesh (host)")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = {}
+    t0 = time.perf_counter()
+    # the cells and the witness side by side: each is one process on one core
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                               arch, "--shape", shape], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for arch, shape in DRYRUN_CELLS]
+    witness = subprocess.Popen([sys.executable, "-c", _DRYRUN_WITNESS, TRAIN_ARCH,
+                                str(TRAIN_SEQ), str(meshed["batch"])], stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        for (arch, shape), proc in zip(DRYRUN_CELLS, procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0 and "dry-run OK" in stdout,
+                  f"dry-run {arch} {shape} failed: {stdout[-1500:]} {stderr[-1500:]}")
+            art = ROOT / "experiments" / "dryrun_torch" / f"{arch}.{shape}.16x16.json"
+            d = json.loads(art.read_text())
+            (ROOT / "chiprun_out").mkdir(exist_ok=True)
+            shutil.copy(art, ROOT / "chiprun_out" / f"dryrun_{arch}.{shape}.json")
+            by_kind = {k: v["bytes"] for k, v in d["collectives"]["by_kind"].items()}
+            how = (f", extended from layers x microbatches {d['extrapolated_from']}"
+                   if "extrapolated_from" in d else ", traced whole")
+            print(f"  {arch} {shape}{how}: {d['num_devices']} ranks, per-device "
+                  f"{d['memory']['per_device_bytes'] / 2**30:.3f} GiB (params "
+                  f"{d['memory']['param_bytes'] / 2**30:.3f}, temporaries "
+                  f"{d['memory']['temp_bytes'] / 2**30:.3f}), collectives "
+                  f"{d['collectives']['count']} ops, {d['collectives']['total_bytes']:.4e} bytes "
+                  f"a device, by kind {json.dumps(by_kind)}; engine ({d['engine_hw']}) "
+                  f"{d['engine']['total_seconds']:.4f} s; trace {d['trace_s']:.1f} s, done "
+                  f"{wall:.1f} s into the phase")
+            check(d["num_devices"] == 256 and d["ir_totals"]["mxu_flops"] > 0
+                  and d["collectives"]["total_bytes"] > 0 and d["engine"]["total_seconds"] > 0,
+                  f"dry-run {arch} {shape}: an empty record")
+            out[f"{arch}.{shape}"] = {"per_device_gib": d["memory"]["per_device_bytes"] / 2**30,
+                                      "memory": d["memory"], "collective_bytes": by_kind,
+                                      "engine_s": d["engine"]["total_seconds"],
+                                      "trace_s": d["trace_s"], "wall_s": wall}
+        stdout, stderr = witness.communicate(timeout=600)
+        check(witness.returncode == 0,
+              f"the dry-run of phase 22's step failed: {stdout[-1500:]} {stderr[-1500:]}")
+    finally:
+        for proc in (*procs, witness):
+            proc.kill()
+    w = json.loads(stdout.strip().splitlines()[-1])
+    traced = w["memory"]["per_device_bytes"]
+    peak = meshed["run_peak_bytes"]
+    print(f"  witness: the dry-run's record of phase 22's {TRAIN_ARCH} FULL step (seq "
+          f"{TRAIN_SEQ}, batch {meshed['batch']}, a (1, 1) mesh, extended from "
+          f"{w['extrapolated_from']}): per-device {traced / 1e9:.3f} GB (arguments "
+          f"{w['memory']['argument_bytes'] / 1e9:.3f}, temporaries "
+          f"{w['memory']['temp_bytes'] / 1e9:.3f}, outputs {w['memory']['output_bytes'] / 1e9:.3f}"
+          f", aliased {w['memory']['alias_bytes'] / 1e9:.3f}) against the card's peak "
+          f"{peak / 1e9:.3f} GB over what was allocated before phase 22's trainer: ratio {traced / peak:.4f} (tol {DRYRUN_MEM_TOL})")
+    check(abs(traced / peak - 1) <= DRYRUN_MEM_TOL,
+          "the dry-run's memory record of phase 22's step is off the card's peak")
+    out["witness"] = {"traced_bytes": traced, "card_peak_bytes": peak,
+                      "ratio": traced / peak, **w}
+    return out
+
+
 # the debugger's tolerance for one fp32 LeNet step against float64: both the
 # absolute and the relative error (to the node's largest output) must exceed
 # their bound for a node to diverge
@@ -2163,12 +2474,12 @@ def moe_serve_phase():
     # moe_ffn on one layer's served input against the plain version
     orig, seen = moe_mod.moe_ffn, []
 
-    def record(p, c, x, capacity_factor=moe_mod.CAPACITY_FACTOR):
+    def record(p, c, x, capacity_factor=moe_mod.CAPACITY_FACTOR, **kw):
         if len(seen) == MOE_LAYER:
             seen.append(x.clone())
         else:
             seen.append(None)
-        return orig(p, c, x, capacity_factor=capacity_factor)
+        return orig(p, c, x, capacity_factor=capacity_factor, **kw)
 
     moe_mod.moe_ffn = record
     try:
@@ -2359,6 +2670,8 @@ def main() -> int:
         families = {MOE_ARCH: moe_serve_phase()}
         families.update(families_serve_phase())
         smokes = smoke_serve_phase()
+        meshed = mesh_phase(train)
+        dryrun = dryrun_phase(meshed)
         flash = kernels[-1]
         flash["launches_by_path"] = {
             f"serve {SERVE_ARCH} FULL": serve_launches["flash_attention"],
@@ -2370,11 +2683,15 @@ def main() -> int:
             flash["launches_by_path"][f"one {arch} FULL prefill"] = out["flash_per_prefill"]
         for arch, out in smokes.items():
             flash["launches_by_path"][f"serve {arch} smoke"] = out["flash_launches"]
+        flash["launches_by_path"][f"train {TRAIN_ARCH} FULL on the (1, 1) mesh, Trainer "
+                                  f"({MESH_STEPS} steps, batch {meshed['batch']}, local_map)"] = \
+            meshed["flash_launches"]
         flash["attention_backward_ms_per_train_step"] = train["attn_bwd_ms_step"]
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_analysis.json").write_text(json.dumps(
             {"correlation": correlation, "power": power, "gemma": gemma, "train": train,
-             "families": families, "smoke": smokes}, indent=1, default=str))
+             "families": families, "smoke": smokes, "mesh": meshed, "dryrun": dryrun},
+            indent=1, default=str))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -11,16 +11,22 @@ The port of ``repro.checkpoint.store``: a checkpoint either package writes,
 the other restores bit for bit.  Leaves are ordered and named as JAX's tree
 utilities order and name them (dict keys sorted, ``['key']`` and ``[i]``
 path strings), and a 16-bit or 8-bit float without a numpy dtype (bfloat16,
-float8) is stored as raw void bytes, as ``np.savez`` stores JAX's.  The
-resharding restore of the reference (onto another device mesh) waits for the
-port's distributed layer; :func:`restore` returns CPU tensors.  The paper
+float8) is stored as raw void bytes, as ``np.savez`` stores JAX's.
+:func:`restore` returns CPU tensors; :func:`restore_resharded` lays them out
+on a (possibly different) mesh, the elastic-rescale path, each rank copying
+its own shard of each leaf to its device.  A state of DTensors is saved
+whole by rank 0 alone: each distinct shard of a leaf is sent to it on its
+own and copied to host memory at once, so no rank's device holds a leaf
+whole.  The paper
 analogue (§III-F): training state checkpointing is the "global memory"
 snapshot; the simulator's op-window checkpoint lives in
 ``repro_torch.core.sim_checkpoint`` and composes with this store.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import shutil
 import threading
@@ -38,20 +44,22 @@ _RAW = {torch.bfloat16: (np.int16, "bfloat16"),
 _RAW_BY_NAME = {name: (dt, ints) for dt, (ints, name) in _RAW.items()}
 
 
-def _flatten(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
+def _flatten(tree: Any, path: str = "", is_leaf=None) -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in JAX's order: dict keys sorted, sequences in
-    order, ``None`` an empty subtree."""
+    order, ``None`` an empty subtree (a leaf where ``is_leaf`` says so)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(path, tree)]
     if tree is None:
         return []
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out.extend(_flatten(tree[k], f"{path}[{k!r}]"))
+            out.extend(_flatten(tree[k], f"{path}[{k!r}]", is_leaf))
         return out
     if isinstance(tree, (list, tuple)):
         out = []
         for i, v in enumerate(tree):
-            out.extend(_flatten(v, f"{path}[{i}]"))
+            out.extend(_flatten(v, f"{path}[{i}]", is_leaf))
         return out
     return [(path, tree)]
 
@@ -75,9 +83,7 @@ def _unflatten(like: Any, leaves: List[Any]) -> Any:
 def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     """A leaf as the numpy array ``arrays.npz`` holds, and its dtype name."""
     if isinstance(leaf, torch.Tensor):
-        # a copy even of a host tensor: the writer thread reads it while the
-        # next step updates the state in place
-        t = leaf.detach().to("cpu", copy=True)
+        t = leaf.detach().cpu()
         if t.dtype in _RAW:
             ints, name = _RAW[t.dtype]
             arr = t.contiguous().view(torch.int16 if ints is np.int16 else torch.uint8).numpy()
@@ -95,15 +101,72 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def _shards(leaf) -> List[Tuple[int, Tuple[slice, ...]]]:
+    """(owner rank, box) of each distinct shard of a DTensor: the first
+    rank in mesh order that holds that box."""
+    from repro_torch.distributed.sharding import shard_box
+    mesh = leaf.device_mesh
+    owners: Dict[Tuple[Tuple[int, int], ...], int] = {}
+    for coord in itertools.product(*(range(n) for n in mesh.mesh.shape)):
+        box = shard_box(leaf.shape, mesh, leaf.placements, coord)
+        owners.setdefault(tuple((s.start, s.stop) for s in box), int(mesh.mesh[coord]))
+    return [(r, tuple(slice(a, b) for a, b in key)) for key, r in owners.items()]
+
+
+def _host_copy(leaf: Any, writes: bool) -> Any:
+    """A leaf whole in host memory on the rank that writes, None elsewhere.
+    A DTensor's distinct shards reach rank 0 one at a time, point to point
+    in an order every rank computes alike: a rank's device holds at most
+    its own shards and, on rank 0, one other's."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(leaf, DTensor):
+        if not writes:
+            return None
+        # a copy even of a host tensor: the writer thread reads it while the
+        # next step updates the state in place
+        return leaf.detach().to("cpu", copy=True) if isinstance(leaf, torch.Tensor) else leaf
+    import torch.distributed as dist
+    me = dist.get_rank()
+    local = leaf.to_local().detach()
+    out = torch.empty(leaf.shape, dtype=leaf.dtype) if writes else None
+    for owner, box in _shards(leaf):
+        shape = [s.stop - s.start for s in box]
+        if math.prod(shape) == 0:
+            continue
+        if owner == me:
+            if writes:
+                out[box] = local.cpu()
+            else:
+                dist.send(local.contiguous().reshape(-1).view(torch.uint8), dst=0)
+        elif writes:
+            buf = torch.empty(math.prod(shape) * leaf.element_size(), dtype=torch.uint8,
+                              device=local.device)
+            dist.recv(buf, src=owner)
+            out[box] = buf.cpu().view(leaf.dtype).reshape(shape)
+            del buf
+    return out
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0, or the only one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(directory: str, step: int, tree: Any, blocking: bool = True,
-         extra_meta: Optional[Dict] = None) -> threading.Thread:
-    """Write a checkpoint; returns the writer thread (join if blocking=False)."""
-    os.makedirs(directory, exist_ok=True)
+         extra_meta: Optional[Dict] = None) -> Optional[threading.Thread]:
+    """Write a checkpoint; returns the writer thread (join if blocking=False),
+    or None on a rank that does not write."""
     # copy to host memory synchronously (cheap vs. a training step); disk
     # I/O can then proceed async without racing later in-place updates
     flat = _flatten(tree)
     paths = [p for p, _ in flat]
-    host = [_to_host(leaf) for _, leaf in flat]
+    writes = _writes()
+    host = [_host_copy(leaf, writes) for _, leaf in flat]
+    if not writes:
+        return None
+    host = [_to_host(leaf) for leaf in host]
+    os.makedirs(directory, exist_ok=True)
 
     def _write():
         name = f"step_{step:08d}"
@@ -169,6 +232,37 @@ def restore(directory: str, step: int, like: Any) -> Any:
     return _unflatten(like, leaves)
 
 
+def restore_resharded(directory: str, step: int, like: Any, shardings: Any) -> Any:
+    """Restore onto a (possibly different) mesh: the elastic-rescale path.
+
+    ``shardings`` has ``like``'s structure; each leaf is ``(mesh,
+    placements)`` (the leaf becomes a DTensor: every rank reads the whole
+    checkpoint into host memory and copies its own shard to the mesh's
+    device), a device (the leaf is moved there) or
+    None (it stays on the CPU).  Each leaf takes ``like``'s dtype."""
+    from repro_torch.distributed.sharding import from_full
+    host = restore(directory, step, like)
+    targets = [t for _, t in _flatten(shardings, is_leaf=_is_layout)]
+    leaves = [leaf for _, leaf in _flatten(host)]
+    likes = [leaf for _, leaf in _flatten(like)]
+    out = []
+    for leaf, target, lk in zip(leaves, targets, likes):
+        leaf = leaf.to(lk.dtype)
+        if isinstance(target, tuple):
+            mesh, placements = target
+            leaf = from_full(leaf, mesh, placements, device=mesh.device_type)
+        elif target is not None:
+            leaf = leaf.to(target)
+        out.append(leaf)
+    return _unflatten(like, out)
+
+
+def _is_layout(x: Any) -> bool:
+    """A leaf of a shardings tree: None, a device or ``(mesh, placements)``."""
+    return not isinstance(x, (dict, list, tuple)) or (
+        len(x) == 2 and hasattr(x[0], "mesh_dim_names"))
+
+
 class CheckpointManager:
     """Cadenced async checkpointing with retention, for the trainer loop."""
 
@@ -184,7 +278,7 @@ class CheckpointManager:
         if not force and (self.every <= 0 or step % self.every != 0):
             return False
         t = save(self.directory, step, tree, blocking=not self.async_write)
-        if self.async_write:
+        if t is not None and self.async_write:
             self._pending.append(t)
         else:
             self._gc()
@@ -197,6 +291,8 @@ class CheckpointManager:
         self._gc()   # retention enforced once all async writes committed
 
     def _gc(self):
+        if not _writes():
+            return
         steps = list_steps(self.directory)
         for s in steps[:-self.keep] if self.keep > 0 else []:
             name = os.path.join(self.directory, f"step_{s:08d}")

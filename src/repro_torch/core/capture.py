@@ -25,7 +25,14 @@ Winograd tiles op becomes an elementwise input transform, a ``dot`` over the
 Winograd conv op the reference's unfused program around those three (pads,
 tile gather, reassembly); the flash-attention
 op a q.k^T ``dot`` batched over the kv heads, an ``exponential`` and a p.v
-``dot``.  Views become
+``dot``.  A step traced on DTensors (one rank's program on a mesh) holds
+functional collectives: ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_reduce`` and ``all_to_all_single`` (and DTensor's
+``shard_dim_alltoall``) become ``all-gather``, ``reduce-scatter``,
+``all-reduce`` and ``all-to-all`` with the
+``replica_groups`` of their process group's ranks, the pipeline's
+``ring_permute`` a ``collective-permute`` with its ``source_target_pairs``,
+and ``wait_tensor`` nothing (it names its input).  Views become
 ``bitcast`` (free, as in eager PyTorch); materialized copies become
 ``copy``.  An aten op with no mapping raises ``NotImplementedError``.
 
@@ -68,11 +75,13 @@ def _map(opcode: str, *ops) -> None:
 _map("bitcast", _aten.view.default, _aten._unsafe_view.default,
      _aten.permute.default, _aten.t.default, _aten.transpose.int,
      _aten.expand.default, _aten.unsqueeze.default, _aten.squeeze.dim,
+     _aten.squeeze.dims,
      _aten.alias.default, _aten.select.int, _aten.slice.Tensor,
      _aten.unfold.default, _aten.detach.default, _aten.view_as_real.default,
      _aten._conj.default, _aten.split.Tensor, _aten.split_with_sizes.default,
-     _aten.empty.memory_format,
-     _aten.empty_like.default)
+     _aten.as_strided.default, _aten.empty.memory_format, _aten.empty_like.default,
+     _aten.empty_strided.default, _aten.new_empty.default,
+     _aten.new_empty_strided.default)
 _map("copy", _aten.clone.default, _aten.copy_.default,
      _aten.lift_fresh_copy.default)
 # in-place forms (the optimizer update, autograd's accumulation into an
@@ -107,7 +116,8 @@ _map("and", _aten.bitwise_and_.Tensor)
 _map("select", _aten.where.self, _aten.threshold_backward.default)
 _map("reduce", _aten.sum.default, _aten.sum.dim_IntList, _aten.mean.default,
      _aten.mean.dim,
-     _aten.argmax.default, _aten.logsumexp.default)
+     _aten.argmax.default, _aten.logsumexp.default, _aten.amax.default)
+_map("log", _aten.log.default)
 _map("reduce-window", _aten.max_pool2d_with_indices.default)
 _map("select-and-scatter", _aten.max_pool2d_with_indices_backward.default)
 _map("gather", _aten.index.Tensor)
@@ -443,6 +453,40 @@ def _flash_attention(em: _Emitter, node: torch.fx.Node) -> None:
     em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "bitcast", [out])
 
 
+def _group_ranks(group: Any) -> List[int]:
+    """The global ranks of a process group, or of the one named ``group``."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    if isinstance(group, str):
+        group = _resolve_process_group(group)
+    return dist.get_process_group_ranks(group)
+
+
+def _collective(opcode: str, group_arg: int, attrs: str = ""):
+    """A handler emitting a functional collective over the group named by
+    its argument ``group_arg`` as ``opcode`` with that group's ranks."""
+    def emit(em: _Emitter, node: torch.fx.Node) -> None:
+        ranks = ",".join(str(r) for r in _group_ranks(node.args[group_arg]))
+        extra = f"replica_groups={{{{{ranks}}}}}" + (f", {attrs}" if attrs else "")
+        em.names[node] = em.inst(node.name, hlo_type(em.val(node)), opcode,
+                                 [em.names[node.args[0]]], extra)
+    return emit
+
+
+def _wait(em: _Emitter, node: torch.fx.Node) -> None:
+    """Waiting on a collective emits nothing: the result is its input's."""
+    em.names[node] = em.names[node.args[0]]
+
+
+def _ring_permute(em: _Emitter, node: torch.fx.Node) -> None:
+    x, group_name, shift = node.args[:3]
+    ranks = _group_ranks(group_name)
+    n = len(ranks)
+    pairs = ",".join(f"{{{ranks[i]},{ranks[(i + shift) % n]}}}" for i in range(n))
+    em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "collective-permute",
+                             [em.names[x]], f"source_target_pairs={{{pairs}}}")
+
+
 def _to_copy(em: _Emitter, node: torch.fx.Node) -> None:
     src = em.val(node.args[0])
     opcode = "convert" if src.dtype != em.val(node).dtype else "copy"
@@ -469,6 +513,17 @@ def _register_kernel_ops() -> None:
     _SPECIAL[torch.ops.repro_torch.winograd_tiles.default] = _winograd
     _SPECIAL[torch.ops.repro_torch.conv3x3_winograd.default] = _conv3x3_winograd
     _SPECIAL[torch.ops.repro_torch.flash_attention.default] = _flash_attention
+    import repro_torch.distributed.pipeline  # noqa: F401  (the ring permute op)
+    _SPECIAL[torch.ops.repro_torch.ring_permute.default] = _ring_permute
+    c10d = torch.ops._c10d_functional
+    _SPECIAL[c10d.all_gather_into_tensor.default] = _collective("all-gather", 2,
+                                                                "dimensions={0}")
+    _SPECIAL[c10d.reduce_scatter_tensor.default] = _collective("reduce-scatter", 3,
+                                                               "dimensions={0}")
+    _SPECIAL[c10d.all_reduce.default] = _collective("all-reduce", 2)
+    _SPECIAL[c10d.all_to_all_single.default] = _collective("all-to-all", 3)
+    _SPECIAL[torch.ops._dtensor.shard_dim_alltoall.default] = _collective("all-to-all", 3)
+    _SPECIAL[c10d.wait_tensor.default] = _wait
 
 
 def emit_graph(gm: torch.fx.GraphModule) -> Tuple[str, Dict[str, Tuple[str, ...]]]:

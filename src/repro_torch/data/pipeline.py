@@ -1,19 +1,24 @@
 """Host-side data pipeline: background prefetch + device placement.
 
-The port of ``repro.data.pipeline``.  Where the reference places each numpy
-batch on the mesh with the step's batch sharding, :func:`shard_batch` puts
-it on the step's device: through pinned host memory and a ``non_blocking``
-copy on CUDA, so the copy of batch n + 1 overlaps step n.  Sharding over a
-mesh waits for the port's distributed layer (ROADMAP A5).
+The port of ``repro.data.pipeline``.  :func:`shard_batch` puts each numpy
+batch on the step's device: through pinned host memory and a
+``non_blocking`` copy on CUDA, so the copy of batch n + 1 overlaps step n.
+On a mesh, :func:`repro_torch.distributed.sharding.place` then lays it
+out by its batch axes, as the
+reference places it with the step's batch sharding: every rank draws the
+same seeded batch (the reference's single controller draws it once) and
+keeps its shard, so nothing is sent.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Union
+from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import place
 
 #: what the worker puts at the end of its source
 _END = object()
@@ -43,9 +48,11 @@ class DataPipeline:
     the iteration."""
 
     def __init__(self, source: Iterator, device: Union[str, torch.device],
-                 prefetch: int = 2):
+                 prefetch: int = 2, *, axes: Optional[Dict[str, tuple]] = None,
+                 rules: Any = None, mesh: Any = None):
         self._source = source
         self._device = device
+        self._axes, self._rules, self._mesh = axes, rules, mesh
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -64,7 +71,10 @@ class DataPipeline:
     def _worker(self):
         try:
             for item in self._source:
-                if self._stop.is_set() or not self._put(shard_batch(item, self._device)):
+                batch = shard_batch(item, self._device)
+                if self._mesh is not None:
+                    batch = place(batch, self._axes, self._rules, self._mesh)
+                if self._stop.is_set() or not self._put(batch):
                     return
         except Exception as e:          # surface worker errors to the consumer
             self._put(e)

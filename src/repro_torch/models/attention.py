@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import ambient_mesh, gather_dims, lc
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import ParamSpec, apply_rope, dense
 
@@ -58,11 +59,32 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          bias: Optional[torch.Tensor], softcap: float = 0.0) -> torch.Tensor:
-    """q: (b, s, h, d); k/v: (b, t, kv, d). GQA via head grouping. fp32 softmax."""
+    """q: (b, s, h, d); k/v: (b, t, kv, d). GQA via head grouping. fp32 softmax.
+
+    On DTensors whose kv heads are split over the mesh (a decode cache laid
+    out by ``kv_heads``), each rank attends with its own heads and rows under
+    ``local_map``: the grouped products fold (b, kv) into one dim, and
+    DTensor cannot fold two split dims."""
+    if _is_dtensor(k) and any(p.is_shard(2) for p in k.placements):
+        return _sdpa_on_shards(q, k, v, bias, softcap)
+    return _sdpa(q, k, v, bias, softcap)
+
+
+def _sdpa_on_shards(q, k, v, bias, softcap):
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in k.placements]
+    return local_map(lambda ql, kl, vl, bl: _sdpa(ql, kl, vl, bl, softcap),
+                     out_placements=pl, in_placements=(pl, pl, pl, None),
+                     device_mesh=k.device_mesh, redistribute_inputs=True)(q, k, v, bias)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          bias: Optional[torch.Tensor], softcap: float = 0.0) -> torch.Tensor:
     b, s, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
-    qg = q.reshape(b, s, kvh, group, d)
+    qg = gather_dims(q, (2,), unit=kvh).reshape(b, s, kvh, group, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
     scores = scores / math.sqrt(d)
     if softcap > 0.0:
@@ -71,16 +93,73 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores + bias     # (s, t) broadcast over (b, k, g)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
-    return out.reshape(b, s, h, d)
+    return gather_dims(out, (-1,), unit=1).reshape(b, s, h, d)
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int, softcap: float) -> torch.Tensor:
+           causal: bool, window: int, softcap: float) -> torch.Tensor:
     """(b, s, heads, d) in and out, through the flash op on head-major views
-    (the kernel takes strides: no transpose copies on the card)."""
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          causal=causal, window=window, softcap=softcap)
-    return out.transpose(1, 2)
+    (the kernel takes strides: no transpose copies on the card).
+
+    On DTensors (a step on a mesh) the op runs under ``local_map``: each
+    rank calls it on its own shard, batch over the batch axes and heads over
+    the model axis, as the reference's partitioner splits the attention.
+    Where the kv heads do not divide over the model axis, k and v are
+    repeated to one head a query head first, so that every rank's query
+    heads find their kv heads in its own shard."""
+    mesh = ambient_mesh()
+    if mesh is None or not _is_dtensor(q):
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=causal, window=window, softcap=softcap)
+        return out.transpose(1, 2)
+    return _flash_local(q, k, v, mesh, causal=causal, window=window, softcap=softcap)
+
+
+def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(b, s, n * hd) -> (b, s, n, hd)."""
+    return gather_dims(t, (-1,), unit=n).reshape(t.shape[0], t.shape[1], n, hd)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(b, s, n, hd) -> (b, s, n * hd), with hd gathered first where it is
+    sharded (a shard of the inner dim of a merge is strided, and DTensor
+    cannot price its redistribution on fake tensors)."""
+    b, s, n, hd = t.shape
+    return gather_dims(t, (-1,), unit=1).reshape(b, s, n * hd)
+
+
+def _is_dtensor(x: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _flash_local(q, k, v, mesh, *, causal: bool, window: int, softcap: float):
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import axes_to_pspec, even_placements, rules_for
+    h, kvh = q.shape[2], k.shape[2]
+    # (b, s, h, d): batch on its axes, heads on the model axis, where they divide
+    pq = even_placements(q.shape, axes_to_pspec(("batch", None, "heads"), rules_for()),
+                         mesh)
+    heads_over = 1
+    for i, p in enumerate(pq):
+        if isinstance(p, Shard) and p.dim == 2:
+            heads_over *= mesh.size(i)
+    if kvh % heads_over:
+        # k and v whole over the heads' mesh dims, split as q is elsewhere
+        kv = [Replicate() if isinstance(p, Shard) and p.dim == 2 else p for p in pq]
+        k = k.redistribute(mesh, kv).repeat_interleave(h // kvh, dim=2)
+        v = v.redistribute(mesh, kv).repeat_interleave(h // kvh, dim=2)
+
+    def local(ql, kl, vl):
+        out = flash_attention(ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+                              causal=causal, window=window, softcap=softcap)
+        return out.transpose(1, 2)
+
+    pq = list(pq)      # a list is one output's placements, a tuple several outputs'
+    return local_map(local, out_placements=pq, in_placements=(pq, pq, pq),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -98,19 +177,19 @@ def attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     src = x if kv_source is None else kv_source
     t = src.shape[1]
-    q = dense(x, params["wq"], params.get("bq")).reshape(b, s, h, hd)
-    k = dense(src, params["wk"], params.get("bk")).reshape(b, t, kv, hd)
-    v = dense(src, params["wv"], params.get("bv")).reshape(b, t, kv, hd)
+    q = lc(dense(x, params["wq"], params.get("bq")), ("batch", "seq", "qkv"))
+    k = lc(dense(src, params["wk"], params.get("bk")), ("batch", "seq", "qkv"))
+    v = lc(dense(src, params["wv"], params.get("bv")), ("batch", "seq", "qkv"))
+    q, k, v = _heads(q, h, hd), _heads(k, kv, hd), _heads(v, kv, hd)
     if kv_source is None:
         if use_rope:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-        out = _flash(q, k, v, causal=causal, window=window,
-                              softcap=cfg.logit_softcap)
+        out = _flash(q, k, v, causal=causal, window=window, softcap=cfg.logit_softcap)
     else:
-        out = _flash(q, k, v, causal=False, window=0,
-                              softcap=cfg.logit_softcap)
-    return dense(out.reshape(b, s, h * hd), params["wo"])
+        out = _flash(q, k, v, causal=False, window=0, softcap=cfg.logit_softcap)
+    out = lc(_merge_heads(out), ("batch", "seq", "qkv"))
+    return dense(out, params["wo"])
 
 
 def attention_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -119,14 +198,15 @@ def attention_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Like :func:`attention` but also returns (k, v) for the KV cache."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = dense(x, params["wq"], params.get("bq")).reshape(b, s, h, hd)
-    k = dense(x, params["wk"], params.get("bk")).reshape(b, s, kv, hd)
-    v = dense(x, params["wv"], params.get("bv")).reshape(b, s, kv, hd)
+    q = _heads(dense(x, params["wq"], params.get("bq")), h, hd)
+    k = _heads(dense(x, params["wk"], params.get("bk")), kv, hd)
+    v = _heads(dense(x, params["wv"], params.get("bv")), kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = _flash(q, k, v, causal=True, window=window,
-                          softcap=cfg.logit_softcap)
-    out = dense(out.reshape(b, s, h * hd), params["wo"])
+    out = _flash(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap)
+    out = dense(_merge_heads(out), params["wo"])
+    k = lc(k, ("batch", "kv_seq", "kv_heads", "head_dim"))
+    v = lc(v, ("batch", "kv_seq", "kv_heads", "head_dim"))
     return out, (k, v)
 
 
@@ -144,9 +224,9 @@ def attention_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     b = x.shape[0]
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     S = cache_k.shape[1]
-    q = dense(x, params["wq"], params.get("bq")).reshape(b, 1, h, hd)
-    k_new = dense(x, params["wk"], params.get("bk")).reshape(b, 1, kvh, hd)
-    v_new = dense(x, params["wv"], params.get("bv")).reshape(b, 1, kvh, hd)
+    q = _heads(dense(x, params["wq"], params.get("bq")), h, hd)
+    k_new = _heads(dense(x, params["wk"], params.get("bk")), kvh, hd)
+    v_new = _heads(dense(x, params["wv"], params.get("bv")), kvh, hd)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k_new = apply_rope(k_new, posv, cfg.rope_theta)
@@ -156,5 +236,5 @@ def attention_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     bias = _mask_bias(posv, k_pos, causal=True, window=window,
                       k_valid_len=pos + 1)
     out = sdpa(q, cache_k, cache_v, bias, cfg.logit_softcap)
-    out = dense(out.reshape(b, 1, h * hd), params["wo"])
+    out = dense(_merge_heads(out), params["wo"])
     return out, (cache_k, cache_v)

@@ -20,10 +20,12 @@ from typing import Any, Dict, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.config import ShapeConfig
+from repro_torch.distributed.sharding import lc
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamSpec, dense, lm_loss_from_hidden, rms_norm,
                                        rms_norm_spec, stack_specs, torch_dtype)
-from repro_torch.models.transformer import LMBase, Params, _layer
+from repro_torch.models.transformer import KV_AXES, LMBase, Params, _layer
 
 
 class EncDecLM(LMBase):
@@ -72,7 +74,7 @@ class EncDecLM(LMBase):
                    ) -> torch.Tensor:
         h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
         x = x + attn.attention(p["attn"], self.cfg, h, positions, causal=False)
-        return self._ffn(p, x)
+        return lc(self._ffn(p, x), ("batch", "act_seq", "embed"))
 
     def _cross(self, p: Params, x: torch.Tensor, enc_out: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
@@ -89,7 +91,7 @@ class EncDecLM(LMBase):
     # --------------------------------------------------------------- encoder
     def encode(self, params: Params, frontend_emb: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = frontend_emb.to(torch_dtype(cfg.dtype))
+        x = lc(frontend_emb.to(torch_dtype(cfg.dtype)), ("batch", "act_seq", "embed"))
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         for idx in range(cfg.encoder_layers):
             x = self._remat(self._enc_layer, _layer(params["encoder"], idx), x, positions)
@@ -103,13 +105,14 @@ class EncDecLM(LMBase):
         x = self._embed(params, tokens)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         for idx in range(cfg.num_layers):
-            x = self._remat(self._dec_layer, _layer(params["decoder"], idx), x,
-                            enc_out, positions)
+            x = lc(self._remat(self._dec_layer, _layer(params["decoder"], idx), x,
+                               enc_out, positions), ("batch", "act_seq", "embed"))
         return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 frontend_emb: torch.Tensor) -> torch.Tensor:
-        return self.hidden(params, tokens, frontend_emb) @ params["head"]
+        logits = self.hidden(params, tokens, frontend_emb) @ params["head"]
+        return lc(logits, ("batch", "act_seq", "vocab"))
 
     def loss(self, params: Params, batch: Mapping[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -127,9 +130,8 @@ class EncDecLM(LMBase):
         x = self._embed(params, batch["tokens"])
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-        shape = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-        ks = torch.empty(shape, dtype=x.dtype, device=x.device)
-        vs = torch.empty(shape, dtype=x.dtype, device=x.device)
+        ks = self._kv_cache(cfg.num_layers, b, s, x)
+        vs = self._kv_cache(cfg.num_layers, b, s, x)
         for idx in range(cfg.num_layers):
             p_l = _layer(params["decoder"], idx)
             h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
@@ -138,6 +140,19 @@ class EncDecLM(LMBase):
             x = self._ffn(p_l, self._cross(p_l, x + h, enc_out, positions))
         x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
         return x @ params["head"], {"k": ks, "v": vs, "enc_out": enc_out, "pos": s}
+
+    def decode_state_specs(self, shape: ShapeConfig):
+        """The cache of a prefill of the text positions, as ``meta``
+        tensors, with its logical axes, and the decode token's (``pos``: the
+        cache's last slot, as :meth:`DecoderLM.decode_state_specs`)."""
+        cfg = self.cfg
+        b, S = shape.global_batch, self.text_len(shape)
+        kv = self._kv_specs(cfg.num_layers, b, S)
+        enc = torch.empty((b, cfg.frontend_seq, cfg.d_model), dtype=kv.dtype, device="meta")
+        cache = {"k": kv, "v": kv.clone(), "enc_out": enc, "pos": S - 1}
+        cache_axes = {"k": KV_AXES, "v": KV_AXES, "enc_out": ("batch", "seq", "embed"),
+                      "pos": ()}
+        return (cache, cache_axes) + self._token_specs(shape)
 
     def decode_step(self, params: Params, cache: Mapping[str, Any],
                     batch: Mapping[str, torch.Tensor]

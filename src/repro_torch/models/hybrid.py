@@ -20,12 +20,13 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.config import ModelConfig, ShardingConfig
+from repro_torch.config import ModelConfig, ShapeConfig, ShardingConfig
+from repro_torch.distributed.sharding import lc
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamSpec, lm_loss_from_hidden, rms_norm,
-                                       rms_norm_spec, stack_specs, swiglu)
-from repro_torch.models.transformer import LMBase, Params, _layer
+                                       rms_norm_spec, stack_specs, swiglu, torch_dtype)
+from repro_torch.models.transformer import KV_AXES, LMBase, Params, _layer
 
 
 class HybridLM(LMBase):
@@ -79,7 +80,7 @@ class HybridLM(LMBase):
 
     def _mamba_block(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         h = rms_norm(x, p["ln"], self.cfg.norm_eps)
-        return x + ssm.ssm_mixer(p["mixer"], self.cfg, h)
+        return lc(x + ssm.ssm_mixer(p["mixer"], self.cfg, h), ("batch", "act_seq", "embed"))
 
     def _group(self, shared: Params, p_group: Params, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
@@ -95,17 +96,18 @@ class HybridLM(LMBase):
         layers) is one unit of the remat policy, and so is each Mamba2 layer
         within it, and each tail layer."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, seq_axis="act_seq")
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         for g in range(self.groups):
             x = self._remat(self._group, params["shared"], _layer(params["groups"], g),
                             x, positions)
+            x = lc(x, ("batch", "act_seq", "embed"))
         for r in range(self.remainder):
             x = self._remat(self._mamba_block, _layer(params["tail"], r), x)
         return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return self.hidden(params, tokens) @ params["head"]
+        return lc(self.hidden(params, tokens) @ params["head"], ("batch", "act_seq", "vocab"))
 
     def loss(self, params: Params, batch: Mapping[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -131,9 +133,8 @@ class HybridLM(LMBase):
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         shared = params["shared"]
-        kv_shape = (self.groups, b, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-        ks = torch.empty(kv_shape, dtype=x.dtype, device=x.device)
-        vs = torch.empty(kv_shape, dtype=x.dtype, device=x.device)
+        ks = self._kv_cache(self.groups, b, s, x)
+        vs = self._kv_cache(self.groups, b, s, x)
         gcaches = []
         for g in range(self.groups):
             h = rms_norm(x, shared["ln1"], cfg.norm_eps)
@@ -157,6 +158,35 @@ class HybridLM(LMBase):
                             "mamba": _stack(gcaches)},
                  "tail": tail, "pos": s}
         return x @ params["head"], cache
+
+    def decode_state_specs(self, shape: ShapeConfig):
+        """The cache a prefill of ``shape.seq_len`` leaves, as ``meta``
+        tensors, with its logical axes, and the decode token's (``pos``: the
+        cache's last slot, as :meth:`DecoderLM.decode_state_specs`)."""
+        cfg = self.cfg
+        b, S = shape.global_batch, shape.seq_len
+        d_inner, heads, headdim, n = ssm._dims(cfg)
+        conv_ch = d_inner + 2 * n
+        G, E = self.groups, cfg.attn_every
+        act = torch_dtype(cfg.dtype)
+
+        def mamba(lead):
+            return {"state": torch.empty(lead + (b, heads, headdim, n), dtype=torch.float32,
+                                         device="meta"),
+                    "conv": torch.empty(lead + (b, cfg.ssm_conv - 1, conv_ch), dtype=act,
+                                        device="meta")}
+        kv = self._kv_specs(G, b, S)
+        cache = {"groups": {"k": kv, "v": kv.clone(), "mamba": mamba((G, E))},
+                 "tail": None, "pos": S - 1}
+        cache_axes = {"groups": {"k": KV_AXES, "v": KV_AXES, "mamba": {
+                          "state": ("layers", "layers", "batch", "ssm_heads", None, "state"),
+                          "conv": ("layers", "layers", "batch", None, "ffn")}},
+                      "tail": None, "pos": ()}
+        if self.remainder:
+            cache["tail"] = mamba((self.remainder,))
+            cache_axes["tail"] = {"state": ("layers", "batch", "ssm_heads", None, "state"),
+                                  "conv": ("layers", "batch", None, "ffn")}
+        return (cache, cache_axes) + self._token_specs(shape)
 
     def _mamba_decode(self, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor]
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import gather_dims, inner_dims, lc, seq_whole_grad
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -70,6 +72,11 @@ def spec_param_count(specs: Any, active_expert_frac: float = 1.0) -> int:
             n = int(n * active_expert_frac)
         total += n
     return total
+
+
+def axes_tree(specs: Any) -> Any:
+    """The logical axes of every spec, in the specs' tree."""
+    return _map_specs(lambda s: s.axes, specs)
 
 
 def stack_specs(specs: Any, n: int) -> Any:
@@ -152,7 +159,9 @@ def rms_norm_spec(d: int) -> ParamSpec:
 
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = x @ w
+    # on a mesh: the product folds (b, s) of x and, in its backward, of y's
+    # gradient, so both are gathered along s first (see gather_dims)
+    y = seq_whole_grad(gather_dims(x, inner_dims(x)) @ w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -185,6 +194,10 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           z_loss: float = 0.0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-level CE with optional z-loss. Returns (loss, z_loss) per row."""
+    from repro_torch.distributed.sharding import vocab_parallel_ce
+    split = vocab_parallel_ce(logits, labels, label_smoothing, z_loss)
+    if split is not None:
+        return split
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     # gather-free true-logit extraction, as the reference does it
@@ -203,7 +216,8 @@ def _chunk_loss(xb: torch.Tensor, head_w: torch.Tensor, lb: torch.Tensor,
                 mb: torch.Tensor, z_loss: float
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One chunk's masked (loss, ce, token) sums."""
-    logits = xb @ head_w
+    # constrain the head at its use site, so its gradient stays sharded too
+    logits = dense(xb, lc(head_w, ("fsdp", "vocab")))
     ce, zl = softmax_cross_entropy(logits, lb, z_loss=z_loss)
     return torch.sum((ce + zl) * mb), torch.sum(ce * mb), torch.sum(mb)
 

@@ -90,6 +90,12 @@ class LeNet(nn.Module):
     def param_specs(self) -> Dict[str, ParamSpec]:
         return param_specs(self.cfg)
 
+    def axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        return {k: s.axes for k, s in self.param_specs().items()}
+
+    def logical_overrides(self, mesh_cfg) -> Dict[str, object]:
+        return {}
+
     def load_jax_params(self, params: Mapping[str, np.ndarray]) -> None:
         """Load the reference package's parameters (see :func:`params_from_jax`)."""
         with torch.no_grad():

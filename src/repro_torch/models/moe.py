@@ -8,8 +8,10 @@ dispatch is sort-based and batched over the block dim: a stable sort of the
 (token, choice) pairs by expert gives each its position within its expert,
 gathers fill an (b, E, cap, d) buffer, the expert products are batched
 einsums over it, and a gather per (token, choice) combines the outputs.
-The reference's sharding hints (``lc``, ``gather_once``) have no
-counterpart on one device.
+On a mesh the reference's sharding hints (``lc``, ``gather_once``) hold
+as they do there; routing, dispatch and combine run on each rank's batch
+rows and the expert products on its experts (DTensor has no rule for
+``searchsorted``, and would gather the whole batch for the gathers).
 
 The auxiliary load-balance loss follows Switch Transformer (eq. 4-6).
 """
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import lc, on_shards
 from repro_torch.models.layers import ParamSpec
 
 CAPACITY_FACTOR = 1.25
@@ -93,26 +96,102 @@ def aux_loss(probs: torch.Tensor, gate_idx: torch.Tensor, num_experts: int
     return num_experts * torch.mean(counts.mean(0) * probs.mean((0, 1)))
 
 
+def _dispatch(x: torch.Tensor, gather_idx: torch.Tensor, filled: torch.Tensor, e: int,
+              cap: int) -> torch.Tensor:
+    """(b, s, d) token rows -> the (b, e, cap, d) expert buffers."""
+    b, _, d = x.shape
+    xe = torch.gather(x, 1, gather_idx[..., None].expand(b, e * cap, d))
+    return (xe * filled[..., None].to(xe.dtype)).reshape(b, e, cap, d)
+
+
+def _combine(ye: torch.Tensor, slot: torch.Tensor, gate_vals: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """(b, e * cap, d) expert outputs -> (b, s, d): each token's k slots,
+    weighted by their gates, summed."""
+    b, ecap, d = ye.shape
+    s = slot.shape[1] // k
+    vals = torch.gather(ye, 1, slot.clamp(0, ecap - 1)[..., None].expand(b, s * k, d))
+    w = gate_vals.reshape(b, s * k, 1).to(vals.dtype)
+    return (vals * w).reshape(b, s, k, d).sum(2)
+
+
+def _expert_ffn(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                w_down: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU on its (b, e, cap, d) buffer rows."""
+    g = lc(torch.einsum("becd,edf->becf", xe, w_gate), ("batch", "experts", None, "moe_ffn"))
+    u = lc(torch.einsum("becd,edf->becf", xe, w_up), ("batch", "experts", None, "moe_ffn"))
+    return torch.einsum("becf,efd->becd", F.silu(g) * u, w_down)
+
+
+def _experts(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """:func:`_expert_ffn`; on a mesh each rank runs it on its own shard
+    under ``local_map`` (DTensor's einsum backward views a non-contiguous
+    shard and fails): its batch rows and experts, the weights of its experts
+    gathered whole over the fsdp axis, or its slice of the FFN dim where
+    ``moe_ffn`` shards that.  A weight's gradient is then a partial sum over
+    the ranks that split the batch, and the output (and x's gradient) one
+    over the ranks that split the FFN dim."""
+    from repro_torch.distributed.sharding import ambient_mesh
+    mesh = ambient_mesh()
+    from torch.distributed.tensor import DTensor
+    if mesh is None or not isinstance(xe, DTensor):
+        return _expert_ffn(xe, w_gate, w_up, w_down)
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import axes_to_pspec, even_placements, rules_for
+    rules = rules_for()
+
+    def layout(t, axes):
+        return list(even_placements(t.shape, axes_to_pspec(axes, rules), mesh))
+    px = layout(xe, ("batch", "experts", None, "embed"))
+    pin = layout(w_gate, ("experts", None, "moe_ffn"))
+    pout = layout(w_down, ("experts", "moe_ffn", None))
+    rows = {i for i, p in enumerate(px) if isinstance(p, Shard) and p.dim == 0}
+    ffn = {i for i, p in enumerate(pin) if isinstance(p, Shard) and p.dim == 2}
+
+    def partial_over(pl, dims):
+        return [Partial() if i in dims else p for i, p in enumerate(pl)]
+    return local_map(
+        lambda x, wg, wu, wd: _expert_ffn(x, wg, wu, wd),
+        out_placements=partial_over(px, ffn), in_placements=(px, pin, pin, pout),
+        in_grad_placements=(partial_over(px, ffn), partial_over(pin, rows),
+                            partial_over(pin, rows), partial_over(pout, rows)),
+        device_mesh=mesh, redistribute_inputs=True)(xe, w_gate, w_up, w_down)
+
+
 def moe_ffn(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-            capacity_factor: float = CAPACITY_FACTOR
+            capacity_factor: float = CAPACITY_FACTOR, gather_once: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, s, d) -> (y, aux_loss).  capacity_factor <= 0 => no-drop."""
+    """x: (b, s, d) -> (y, aux_loss).  capacity_factor <= 0 => no-drop.
+
+    gather_once: on a mesh, gather the sequence-sharded x once before
+    routing, so the dispatch and combine gathers are local, and scatter the
+    output back after."""
+    if gather_once:
+        x = lc(x, ("batch", None, "embed"))
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     cap = _capacity(s, cfg, capacity_factor)
-    probs, gate_idx, gate_vals, slot, gather_idx, filled = route(params, cfg, x, cap)
+    # on a mesh each rank routes its own rows (the dispatch is block-local;
+    # DTensor has no rule for searchsorted)
+    rows = ("batch",)
+    probs, gate_idx, gate_vals, slot, gather_idx, filled = on_shards(
+        lambda xb, router: route({"router": router}, cfg, xb, cap), (x, params["router"]),
+        (rows, (None, None)), (rows,) * 6)
     aux = aux_loss(probs, gate_idx, e)
 
-    # batched dispatch gather: (b, s, d) -> (b, e, cap, d)
-    xe = torch.gather(x, 1, gather_idx[..., None].expand(b, e * cap, d))
-    xe = (xe * filled[..., None].to(xe.dtype)).reshape(b, e, cap, d)
-    g = torch.einsum("becd,edf->becf", xe, params["w_gate"])
-    u = torch.einsum("becd,edf->becf", xe, params["w_up"])
-    ye = torch.einsum("becf,efd->becd", F.silu(g) * u, params["w_down"])
-    ye = ye.reshape(b, e * cap, d)
-
-    # batched combine: gather each (token, choice)'s slot, weight, sum
-    vals = torch.gather(ye, 1, slot.clamp(0, e * cap - 1)[..., None].expand(b, s * k, d))
-    w = gate_vals.reshape(b, s * k, 1).to(vals.dtype)
-    out = (vals * w).reshape(b, s, k, d).sum(2)
+    # batched dispatch gather: (b, s, d) -> (b, e, cap, d), and the batched
+    # combine: gather each (token, choice)'s slot, weight, sum; on a mesh
+    # each rank gathers its own rows (DTensor would gather the whole batch)
+    xe = on_shards(lambda xb, ib, fb: _dispatch(xb, ib, fb, e, cap), (x, gather_idx, filled),
+                   (rows,) * 3, (rows,))
+    xe = lc(xe, ("batch", "experts", None, "embed"))
+    ye = _experts(xe, params["w_gate"], params["w_up"], params["w_down"])
+    ye = lc(ye, ("batch", "experts", None, "embed")).reshape(b, e * cap, d)
+    out = on_shards(lambda yb, sb, gb: _combine(yb, sb, gb, k), (ye, slot, gate_vals),
+                    (rows,) * 3, (rows,))
+    if gather_once:
+        out = lc(out, ("batch", "act_seq", "embed"))   # reduce-scatter back
     return out, aux.float()

@@ -17,7 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.distributed.sharding import (gather_dims, inner_dims, lc, on_shards,
+                                              seq_whole_grad)
+from repro_torch.models.layers import ParamSpec, dense, rms_norm
 
 CHUNK = 64   # the pairwise (i, j, dim) decay tensor is O(chunk^2 * d)
 LORA_R = 32
@@ -70,9 +72,10 @@ def _ddlerp(params: Dict, x: torch.Tensor, xs: torch.Tensor) -> Dict[str, torch.
     """Data-dependent token-shift producing the 5 mixed inputs."""
     dx = xs - x
     base = x + dx * params["mu_x"].to(x.dtype)
-    lora = torch.einsum("bsd,dr->bsr", torch.tanh(base), params["lora_a"])
+    lora = gather_dims(dense(torch.tanh(base), params["lora_a"]), (-1,))
     lora = lora.reshape(x.shape[:2] + (len(MIX_NAMES), LORA_R))
-    adj = torch.einsum("bsmr,mrd->bsmd", lora, params["lora_b"])
+    lora = gather_dims(lora, inner_dims(lora))
+    adj = seq_whole_grad(torch.einsum("bsmr,mrd->bsmd", lora, params["lora_b"]))
     mix = params["mu_base"].to(x.dtype)[None, None] + adj
     return {name: x + dx * mix[:, :, i] for i, name in enumerate(MIX_NAMES)}
 
@@ -117,15 +120,15 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.T
         sdecay = torch.exp(total - P)                       # (b, c, h, hd)
         state = state * torch.exp(total[:, 0])[..., None] + torch.einsum(
             "bjhd,bjhe->bhde", kc * sdecay, vc)
+        state = lc(state, ("batch", "heads", None, None))
         ys.append(y)
     return torch.cat(ys, dim=1).to(r.dtype), state
 
 
 def _decay_log(params: Dict, xw: torch.Tensor) -> torch.Tensor:
     """log w_t = -exp(w0 + lora(xw)) -> (b, s, d), strictly negative."""
-    lora = torch.einsum("bsd,dr->bsr", torch.tanh(xw), params["w_lora_a"])
-    ww = params["w0"].float() + torch.einsum(
-        "bsr,rd->bsd", lora, params["w_lora_b"]).float()
+    lora = dense(torch.tanh(xw), params["w_lora_a"])
+    ww = params["w0"].float() + dense(lora, params["w_lora_b"]).float()
     return -torch.exp(ww)
 
 
@@ -136,15 +139,21 @@ def rwkv_time_mix(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     heads, hd = _dims(cfg)
     b, s, d = x.shape
     mixed = _ddlerp(params, x, _shift(x, prev))
-    r = torch.einsum("bsd,de->bse", mixed["r"], params["wr"]).reshape(b, s, heads, hd)
-    k = torch.einsum("bsd,de->bse", mixed["k"], params["wk"]).reshape(b, s, heads, hd)
-    v = torch.einsum("bsd,de->bse", mixed["v"], params["wv"]).reshape(b, s, heads, hd)
-    g = F.silu(torch.einsum("bsd,de->bse", mixed["g"], params["wg"]))
-    logw = _decay_log(params, mixed["w"]).reshape(b, s, heads, hd)
+    hx = ("batch", None, "heads", None)
+    r = lc(dense(mixed["r"], params["wr"]).reshape(b, s, heads, hd), hx)
+    k = lc(dense(mixed["k"], params["wk"]).reshape(b, s, heads, hd), hx)
+    v = lc(dense(mixed["v"], params["wv"]).reshape(b, s, heads, hd), hx)
+    g = F.silu(dense(mixed["g"], params["wg"]))
+    logw = lc(_decay_log(params, mixed["w"]).reshape(b, s, heads, hd), hx)
     u = params["u"].float().reshape(heads, hd)
-    y, state = wkv_chunked(r, k, v, logw, u, state0)
+    # on a mesh each rank scans its own rows and heads (the scan's products
+    # fold (b, heads), which DTensor cannot do with both split)
+    sx = ("batch", "heads", None, None)
+    y, state = on_shards(wkv_chunked, (r, k, v, logw, u, state0),
+                         (hx, hx, hx, hx, ("heads", None), sx), (hx, sx))
+    y = lc(y, hx)
     y = rms_norm(y.reshape(b, s, d), params["ln_x"], cfg.norm_eps) * g
-    out = torch.einsum("bsd,de->bse", y, params["wo"])
+    out = dense(y, params["wo"])
     return out, x[:, -1:], state
 
 
@@ -155,19 +164,26 @@ def rwkv_time_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     heads, hd = _dims(cfg)
     b, _, d = x.shape
     mixed = _ddlerp(params, x, prev)
-    r = torch.einsum("bsd,de->bse", mixed["r"], params["wr"]).reshape(b, heads, hd)
-    k = torch.einsum("bsd,de->bse", mixed["k"], params["wk"]).reshape(b, heads, hd)
-    v = torch.einsum("bsd,de->bse", mixed["v"], params["wv"]).reshape(b, heads, hd)
-    g = F.silu(torch.einsum("bsd,de->bse", mixed["g"], params["wg"]))
+    r = dense(mixed["r"], params["wr"]).reshape(b, heads, hd)
+    k = dense(mixed["k"], params["wk"]).reshape(b, heads, hd)
+    v = dense(mixed["v"], params["wv"]).reshape(b, heads, hd)
+    g = F.silu(dense(mixed["g"], params["wg"]))
     logw = _decay_log(params, mixed["w"]).reshape(b, heads, hd)
     u = params["u"].float().reshape(heads, hd)
-    rf, kf, vf = r.float(), k.float(), v.float()
-    y = torch.einsum("bhd,bhde->bhe", rf, state) + torch.einsum(
-        "bhd,hd,bhd,bhe->bhe", rf, u, kf, vf)
-    state = state * torch.exp(logw)[..., None] + torch.einsum("bhd,bhe->bhde", kf, vf)
+    hx, sx = ("batch", "heads", None), ("batch", "heads", None, None)
+    y, state = on_shards(_wkv_step, (r.float(), k.float(), v.float(), logw, u, state),
+                         (hx, hx, hx, hx, ("heads", None), sx), (hx, sx))
     y = y.reshape(b, 1, d).to(x.dtype)
     y = rms_norm(y, params["ln_x"], cfg.norm_eps) * g
-    return torch.einsum("bsd,de->bse", y, params["wo"]), x, state
+    return dense(y, params["wo"]), x, state
+
+
+def _wkv_step(rf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, logw: torch.Tensor,
+              u: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token's WKV read and state update, per (batch row, head)."""
+    y = torch.einsum("bhd,bhde->bhe", rf, state) + torch.einsum(
+        "bhd,hd,bhd,bhe->bhe", rf, u, kf, vf)
+    return y, state * torch.exp(logw)[..., None] + torch.einsum("bhd,bhe->bhde", kf, vf)
 
 
 def rwkv_channel_mix(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -175,9 +191,9 @@ def rwkv_channel_mix(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     xs = _shift(x, prev)
     xk = x + (xs - x) * params["mu_k"].to(x.dtype)
     xr = x + (xs - x) * params["mu_r"].to(x.dtype)
-    k = torch.square(F.relu(torch.einsum("bsd,df->bsf", xk, params["wk"])))
-    kv = torch.einsum("bsf,fd->bsd", k, params["wv"])
-    r = torch.sigmoid(torch.einsum("bsd,de->bse", xr, params["wr"]))
+    k = torch.square(F.relu(dense(xk, params["wk"])))
+    kv = dense(k, params["wv"])
+    r = torch.sigmoid(dense(xr, params["wr"]))
     return r * kv, x[:, -1:]
 
 

@@ -12,9 +12,11 @@ from typing import Any, Dict, Mapping, Tuple
 
 import torch
 
+from repro_torch.config import MeshConfig, ShapeConfig
+from repro_torch.distributed.sharding import lc
 from repro_torch.models import rwkv
 from repro_torch.models.layers import (lm_loss_from_hidden, rms_norm, rms_norm_spec,
-                                       stack_specs)
+                                       stack_specs, torch_dtype)
 from repro_torch.models.transformer import LMBase, Params, _layer
 
 
@@ -37,6 +39,9 @@ class RWKVLM(LMBase):
             "head": self._head_spec(),
         }
 
+    def logical_overrides(self, mesh_cfg: MeshConfig) -> Dict[str, Any]:
+        return {}
+
     def _zeros(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The zero token-shift carry and the zero WKV state of a batch."""
         heads, hd = rwkv._dims(self.cfg)
@@ -53,7 +58,8 @@ class RWKVLM(LMBase):
         x = x + y
         h = rms_norm(x, p_l["ln2"], cfg.norm_eps)
         y, cm_prev = rwkv.rwkv_channel_mix(p_l["channel"], cfg, h, prev)
-        return x + y, {"state": state, "tm_prev": tm_prev, "cm_prev": cm_prev}
+        return (lc(x + y, ("batch", "act_seq", "embed")),
+                {"state": state, "tm_prev": tm_prev, "cm_prev": cm_prev})
 
     def _layer_train(self, p_l: Params, x: torch.Tensor, prev: torch.Tensor,
                      state0: torch.Tensor) -> torch.Tensor:
@@ -65,7 +71,7 @@ class RWKVLM(LMBase):
     # ----------------------------------------------------------------- train
     def hidden(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = self._embed_in(params, tokens)
+        x = lc(self._embed_in(params, tokens), ("batch", "act_seq", "embed"))
         prev, state0 = self._zeros(x)
         for idx in range(cfg.num_layers):
             x = self._remat(self._layer_train, _layer(params["layers"], idx), x,
@@ -73,7 +79,7 @@ class RWKVLM(LMBase):
         return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return self.hidden(params, tokens) @ params["head"]
+        return lc(self.hidden(params, tokens) @ params["head"], ("batch", "act_seq", "vocab"))
 
     def loss(self, params: Params, batch: Mapping[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -95,6 +101,22 @@ class RWKVLM(LMBase):
         cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
         cache["pos"] = batch["tokens"].shape[1]
         return x @ params["head"], cache
+
+    def decode_state_specs(self, shape: ShapeConfig):
+        """The recurrent cache as ``meta`` tensors, with its logical axes, and
+        the decode token's."""
+        cfg = self.cfg
+        b, L = shape.global_batch, cfg.num_layers
+        heads, hd = rwkv._dims(cfg)
+        act = torch_dtype(cfg.dtype)
+        prev = torch.empty((L, b, 1, cfg.d_model), dtype=act, device="meta")
+        cache = {"state": torch.empty((L, b, heads, hd, hd), dtype=torch.float32,
+                                      device="meta"),
+                 "tm_prev": prev, "cm_prev": prev.clone(), "pos": shape.seq_len - 1}
+        cache_axes = {"state": ("layers", "batch", "ssm_heads", None, None),
+                      "tm_prev": ("layers", "batch", None, "embed"),
+                      "cm_prev": ("layers", "batch", None, "embed"), "pos": ()}
+        return (cache, cache_axes) + self._token_specs(shape)
 
     def decode_step(self, params: Params, cache: Mapping[str, Any],
                     batch: Mapping[str, torch.Tensor]

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.distributed.sharding import lc, on_shards
+from repro_torch.models.layers import ParamSpec, dense, rms_norm
 
 HEADDIM = 64
 CHUNK = 128
@@ -52,7 +53,14 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d. x: (b, s, c); w: (width, c)."""
+    """Depthwise causal conv1d. x: (b, s, c); w: (width, c).  On a mesh each
+    rank convolves its own rows whole (DTensor's convolution rule keeps the
+    groups count of the whole channel dim where it shards the weight's)."""
+    return on_shards(_causal_conv_rows, (x, w, b), (("batch",), (None,), (None,)),
+                     (("batch",),))
+
+
+def _causal_conv_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     width, c = w.shape
     pad = F.pad(x, (0, 0, width - 1, 0)).transpose(1, 2)          # (b, c, s+w-1)
     out = F.conv1d(pad, w.t().reshape(c, 1, width).to(x.dtype), groups=c)
@@ -103,6 +111,7 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.T
         rdecay = torch.exp(total - a_cum)                      # (b, l, h)
         state = state * torch.exp(total)[:, 0, :, None, None] + torch.einsum(
             "bjn,bjh,bjhp->bhpn", bc.float(), rdecay.float(), xc.float())
+        state = lc(state, ("batch", "ssm_heads", None, None))
         ys.append(y_diag + y_off)
     return torch.cat(ys, dim=1), state
 
@@ -112,16 +121,17 @@ def _mixer_inputs(params: Dict, cfg: ModelConfig, x: torch.Tensor):
     dA, B, C, the conv's raw input (b, s, c))."""
     d_inner, heads, headdim, n = _dims(cfg)
     b, s, _ = x.shape
-    zxbcdt = torch.einsum("bsd,de->bse", x, params["in_proj"])
+    zxbcdt = dense(x, params["in_proj"])
     z, xs, B, C, dt = _split_proj(cfg, zxbcdt)
     xbc_raw = torch.cat([xs, B, C], dim=-1)
     xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
     xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"].float())       # (b, s, h)
     A = -torch.exp(params["a_log"].float())                       # (h,)
-    xh = xs.reshape(b, s, heads, headdim)
+    xh = lc(xs.reshape(b, s, heads, headdim), ("batch", None, "ssm_heads", None))
     xdt = (xh.float() * dt[..., None]).to(x.dtype)
-    return z, xh, xdt, dt * A, B, C, xbc_raw
+    dA = lc(dt * A, ("batch", None, "ssm_heads"))                # (b, s, h)
+    return z, xh, xdt, dA, B, C, xbc_raw
 
 
 def _mixer_out(params: Dict, cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
@@ -130,7 +140,7 @@ def _mixer_out(params: Dict, cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
     y = y + xh * params["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, -1)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return torch.einsum("bse,ed->bsd", y, params["out_proj"])
+    return dense(y, params["out_proj"])
 
 
 def ssm_mixer(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -146,7 +156,13 @@ def ssm_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor
     z, xh, xdt, dA, B, C, xbc_raw = _mixer_inputs(params, cfg, x)
     state0 = torch.zeros((x.shape[0], heads, headdim, n), dtype=torch.float32,
                          device=x.device)
-    y, state = ssd_chunked(xdt, dA, B, C, state0)
+    # on a mesh each rank scans its own rows and heads (the scan's products
+    # fold (b, heads), which DTensor cannot do with both split)
+    hx, sx, rows = ("batch", None, "ssm_heads", None), ("batch", "ssm_heads", None, None), \
+        ("batch", None, None)
+    y, state = on_shards(ssd_chunked, (xdt, dA, B, C, state0),
+                         (hx, ("batch", None, "ssm_heads"), rows, rows, sx), (hx, sx))
+    y = lc(y, ("batch", None, "ssm_heads", None))
     out = _mixer_out(params, cfg, x, y, xh, z)
     return out, {"state": state, "conv": xbc_raw[:, -(cfg.ssm_conv - 1):, :]}
 
@@ -164,13 +180,20 @@ def ssm_cache_shape(cfg: ModelConfig, batch: int) -> Dict[str, Tuple[int, ...]]:
     }
 
 
+def _ssd_step(B1: torch.Tensor, C1: torch.Tensor, xh: torch.Tensor, dt1: torch.Tensor,
+              dA: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token's state update and read, per (batch row, head)."""
+    state = state * dA[..., None, None] + torch.einsum("bn,bhp->bhpn", B1, xh * dt1[..., None])
+    return torch.einsum("bn,bhpn->bhp", C1, state), state
+
+
 def ssm_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                     cache: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (b, 1, d); cache: {state: (b,h,p,n) fp32, conv: (b,w-1,c)}."""
     d_inner, heads, headdim, n = _dims(cfg)
     b = x.shape[0]
-    zxbcdt = torch.einsum("bsd,de->bse", x, params["in_proj"])
+    zxbcdt = dense(x, params["in_proj"])
     z, xs, B, C, dt = _split_proj(cfg, zxbcdt)
     xbc_new = torch.cat([xs, B, C], dim=-1)                          # (b, 1, c)
     window = torch.cat([cache["conv"], xbc_new], dim=1)              # (b, w, c)
@@ -181,11 +204,13 @@ def ssm_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     A = -torch.exp(params["a_log"].float())
     xh = xs1.reshape(b, heads, headdim).float()
     dA = torch.exp(dt1 * A)                                          # (b, h)
-    state = cache["state"] * dA[..., None, None] + torch.einsum(
-        "bn,bhp->bhpn", B1.float(), xh * dt1[..., None])
-    y = torch.einsum("bn,bhpn->bhp", C1.float(), state)
+    hx, rows = ("batch", "ssm_heads", None), ("batch", None)
+    y, state = on_shards(_ssd_step, (B1.float(), C1.float(), xh, dt1, dA, cache["state"]),
+                         (rows, rows, hx, ("batch", "ssm_heads"), ("batch", "ssm_heads"),
+                          ("batch", "ssm_heads", None, None)),
+                         (hx, ("batch", "ssm_heads", None, None)))
     y = y + xh * params["d_skip"].float()[None, :, None]
     y = y.reshape(b, 1, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, params["out_proj"])
+    out = dense(y, params["out_proj"])
     return out, {"state": state, "conv": window[:, 1:]}

@@ -30,16 +30,21 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.config import ModelConfig, ShapeConfig, ShardingConfig
+from repro_torch.config import MeshConfig, ModelConfig, ShapeConfig, ShardingConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import empty as sharded_empty
+from repro_torch.distributed.sharding import embed_rows, gather_dims, lc
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (ParamSpec, init_params, lm_loss_from_hidden,
+from repro_torch.models.layers import (ParamSpec, axes_tree, init_params, lm_loss_from_hidden,
                                        pad_vocab, rms_norm, rms_norm_spec,
                                        stack_specs, swiglu, torch_dtype)
 from repro_torch.optim import TrainState
 
 Params = Dict[str, Any]
+
+#: the logical axes of a stacked (L, b, S, kv, hd) K or V cache
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -161,12 +166,34 @@ class LMBase:
             return {k: meta(v) for k, v in spec.items()}
         return meta(self.param_specs())
 
+    def axes(self) -> Dict[str, Any]:
+        """The logical axes of every parameter, in the parameter tree."""
+        return axes_tree(self.param_specs())
+
+    def logical_overrides(self, mesh_cfg: MeshConfig) -> Dict[str, Any]:
+        """Divisibility-aware cache sharding: prefer kv-head sharding, fall back
+        to head-dim sharding when kv_heads doesn't divide the model axis."""
+        m = mesh_cfg.axis_size("model")
+        if self.cfg.num_kv_heads and self.cfg.num_kv_heads % m == 0:
+            return {"kv_heads": "model", "head_dim": None}
+        return {"kv_heads": None, "head_dim": "model"}
+
     def _embed(self, params: Params, tokens: torch.Tensor,
-               frontend_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = params["embed"][tokens].to(torch_dtype(self.cfg.dtype))
+               frontend_emb: Optional[torch.Tensor] = None,
+               seq_axis: Optional[str] = None) -> torch.Tensor:
+        """The token rows of the table (with the frontend rows before them);
+        with ``seq_axis`` constrained to ("batch", seq_axis, "embed")."""
+        tbl = lc(params["embed"], (None, "embed_tbl"))
+        x = embed_rows(tbl, tokens).to(torch_dtype(self.cfg.dtype))
         if frontend_emb is not None:
             x = torch.cat([frontend_emb.to(x.dtype), x], dim=1)
-        return x
+        return x if seq_axis is None else lc(x, ("batch", seq_axis, "embed"))
+
+    def _kv_cache(self, n: int, b: int, s: int, like: torch.Tensor) -> torch.Tensor:
+        """An empty (n, b, s, kv, hd) K or V cache for a prefill to fill."""
+        cfg = self.cfg
+        return sharded_empty((n, b, s, cfg.num_kv_heads, cfg.resolved_head_dim), KV_AXES,
+                             dtype=like.dtype, device=like.device)
 
     def _remat(self, fn, *args):
         """``fn(*args)`` (one layer, or one unit of layers) under the remat
@@ -207,6 +234,15 @@ class LMBase:
         specs, axes = self.train_input_specs(shape)
         specs.pop("labels"), axes.pop("labels")
         return specs, axes
+
+    def _token_specs(self, shape: ShapeConfig):
+        tok = torch.empty((shape.global_batch, 1), dtype=torch.int32, device="meta")
+        return {"token": tok}, {"token": ("batch", "seq")}
+
+    def _kv_specs(self, n: int, b: int, s: int) -> torch.Tensor:
+        cfg = self.cfg
+        return torch.empty((n, b, s, cfg.num_kv_heads, cfg.resolved_head_dim),
+                           dtype=torch_dtype(cfg.dtype), device="meta")
 
 
 class DecoderLM(LMBase):
@@ -256,7 +292,8 @@ class DecoderLM(LMBase):
         MoE aux loss (None for an FFN)."""
         h = rms_norm(x, p_l["ln2"], self.cfg.norm_eps)
         if self.cfg.family == "moe":
-            h, aux = moe_mod.moe_ffn(p_l["moe"], self.cfg, h, capacity_factor=capacity)
+            h, aux = moe_mod.moe_ffn(p_l["moe"], self.cfg, h, capacity_factor=capacity,
+                                     gather_once=self.sharding.moe_gather_once)
             return x + h, aux
         f = p_l["ffn"]
         return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"]), None
@@ -265,7 +302,8 @@ class DecoderLM(LMBase):
                window: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         h = rms_norm(x, p_l["ln1"], self.cfg.norm_eps)
         x = x + attn.attention(p_l["attn"], self.cfg, h, positions, window=window)
-        return self._ffn(p_l, x, self.moe_capacity)
+        x, aux = self._ffn(p_l, x, self.moe_capacity)
+        return lc(x, ("batch", "act_seq", "embed")), aux
 
     # ---------------------------------------------------------------- train
     def hidden(self, params: Params, tokens: torch.Tensor,
@@ -273,7 +311,7 @@ class DecoderLM(LMBase):
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Causal forward -> (final-norm hidden (b, s_total, d), MoE aux)."""
         cfg = self.cfg
-        x = self._embed(params, tokens, frontend_emb)
+        x = self._embed(params, tokens, frontend_emb, seq_axis="act_seq")
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         aux = None
         for idx in range(cfg.num_layers):
@@ -298,7 +336,11 @@ class DecoderLM(LMBase):
         loss, ce = lm_loss_from_hidden(x, params["head"], batch["labels"],
                                        z_loss=1e-4, mask=batch.get("loss_mask"))
         if cfg.family == "moe":
-            loss = loss + 1e-2 * aux
+            # whole on every rank first: DTensor's backward of a sum of
+            # scalars reduced two ways (the aux loss's batch mean, the
+            # loss's token sum) fails
+            aux = gather_dims(aux)
+            loss = gather_dims(loss) + 1e-2 * aux
         return loss, {"ce": ce, "aux_loss": aux}
 
     def forward(self, params: Params, tokens: torch.Tensor,
@@ -306,19 +348,19 @@ class DecoderLM(LMBase):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full logits and the MoE aux loss (zero for a model without MoE)."""
         x, aux = self.hidden(params, tokens, frontend_emb)
-        return x @ params["head"], aux
+        return lc(x @ params["head"], ("batch", "act_seq", "vocab")), aux
 
     # -------------------------------------------------------------- prefill
     def prefill(self, params: Params, batch: Mapping[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Returns (last-token logits, cache). Cache K/V: (L, b, S, kv, hd)."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"], batch.get("frontend_emb"))
+        x = self._embed(params, batch["tokens"], batch.get("frontend_emb"),
+                        seq_axis="act_seq")
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-        shape = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-        ks = torch.empty(shape, dtype=x.dtype, device=x.device)
-        vs = torch.empty(shape, dtype=x.dtype, device=x.device)
+        ks = self._kv_cache(cfg.num_layers, b, s, x)
+        vs = self._kv_cache(cfg.num_layers, b, s, x)
         for idx in range(cfg.num_layers):
             p_l = _layer(params["layers"], idx)
             h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
@@ -327,8 +369,19 @@ class DecoderLM(LMBase):
             ks[idx] = k
             vs[idx] = v
             x, _ = self._ffn(p_l, x + h, self.moe_capacity)
+            x = lc(x, ("batch", "act_seq", "embed"))
         x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-        return x @ params["head"], {"k": ks, "v": vs, "pos": s}
+        return x @ params["head"], {"k": lc(ks, KV_AXES), "v": lc(vs, KV_AXES), "pos": s}
+
+    def decode_state_specs(self, shape: ShapeConfig):
+        """The cache a prefill of ``shape.seq_len`` leaves, as ``meta``
+        tensors, with its logical axes, and the decode token's.  ``pos`` is
+        the cache's last slot, so one step writes it and reads every slot
+        (the reference's one-token step against a full-length cache)."""
+        kv = self._kv_specs(self.cfg.num_layers, shape.global_batch, shape.seq_len)
+        cache = {"k": kv, "v": kv.clone(), "pos": shape.seq_len - 1}
+        cache_axes = {"k": KV_AXES, "v": KV_AXES, "pos": ()}
+        return (cache, cache_axes) + self._token_specs(shape)
 
     # --------------------------------------------------------------- decode
     def decode_step(self, params: Params, cache: Mapping[str, Any],
@@ -342,7 +395,7 @@ class DecoderLM(LMBase):
         """
         cfg = self.cfg
         pos = cache["pos"]
-        x = self._embed(params, batch["token"])
+        x = self._embed(params, batch["token"], seq_axis="seq")  # decode: seq dim is 1
         for idx in range(cfg.num_layers):
             p_l = _layer(params["layers"], idx)
             h = rms_norm(x, p_l["ln1"], cfg.norm_eps)

@@ -15,6 +15,12 @@ chunk, and within a chunk the arithmetic runs in the reference's order
 (every product and sum rounded where the reference rounds it).  The step,
 the learning rate, the clipping scale and the bias corrections stay 0-d
 tensors on the state's device: the update never waits for the host.
+
+On a mesh the trees hold DTensors, and the update walks each rank's local
+shards (a gradient first laid out as its parameter is).  The global norm
+sums every shard's squares once: over the mesh dims a leaf is sharded on,
+its ranks' partial sums add up; over the dims it is replicated on, each
+rank already holds the whole sum.
 """
 from __future__ import annotations
 
@@ -51,13 +57,24 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def state_axes(param_axes: Any) -> TrainState:
+    """Logical axes tree matching the TrainState structure."""
+    return TrainState((), param_axes, param_axes, param_axes, param_axes)
+
+
+def _is_dtensor(t: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def init_state(params: Any) -> TrainState:
     """The first state: fp32 copies of the params (copies even where a
     param is fp32 already: the update writes the master in place) and zero
-    moments, on the params' device."""
+    moments, on the params' device (DTensors laid out as the params are,
+    for DTensor params)."""
     first = tree_leaves(params)[0]
     master = tree_map(lambda p: p.to(torch.float32, copy=True), params)
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return TrainState(torch.zeros((), dtype=torch.int32, device=first.device), params,
                       master, tree_map(zeros, params), tree_map(zeros, params))
 
@@ -79,14 +96,34 @@ def _chunks(t: torch.Tensor) -> Iterator[torch.Tensor]:
     return iter(t.view(-1).split(CHUNK))
 
 
+def _square_sum(t: torch.Tensor) -> torch.Tensor:
+    sq = None
+    for c in _chunks(t):
+        part = torch.sum(torch.square(c.to(torch.float32)))
+        sq = part if sq is None else sq + part
+    return sq
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of every element's square, in fp32 (chunked, so no
-    fp32 copy of a whole bf16 tensor is made)."""
+    fp32 copy of a whole bf16 tensor is made).  Over DTensor leaves the
+    shards' sums are added over the mesh dims each leaf is sharded on, one
+    reduction for all leaves of a layout."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     sq = None
+    parts: Dict[Any, torch.Tensor] = {}
     for g in tree_leaves(tree):
-        for c in _chunks(g):
-            part = torch.sum(torch.square(c.to(torch.float32)))
-            sq = part if sq is None else sq + part
+        if _is_dtensor(g):
+            layout = (g.device_mesh, tuple(Replicate() if p.is_replicate() else Partial()
+                                           for p in g.placements))
+            part = _square_sum(g.to_local())
+            parts[layout] = part if layout not in parts else parts[layout] + part
+            continue
+        part = _square_sum(g)
+        sq = part if sq is None else sq + part
+    for (mesh, pl), part in parts.items():
+        part = DTensor.from_local(part, mesh, pl, run_check=False).full_tensor()
+        sq = part if sq is None else sq + part
     return torch.sqrt(sq)
 
 
@@ -111,6 +148,10 @@ def adamw_update(state: TrainState, grads: Any, cfg: TrainConfig,
     leaves = zip(tree_leaves(grads), tree_leaves(state.master), tree_leaves(state.m),
                  tree_leaves(state.v), tree_leaves(state.params))
     for g, master, m, v, p in leaves:
+        if _is_dtensor(p):
+            if g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)
+            g, master, m, v, p = (t.to_local() for t in (g, master, m, v, p))
         for gc, mac, mc, vc, pc in zip(*map(_chunks, (g, master, m, v, p))):
             gc = gc.to(torch.float32) * scale
             mc.mul_(b1).add_(gc * (1 - b1))

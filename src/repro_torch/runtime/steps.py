@@ -1,11 +1,19 @@
 """Step functions: one training step, one prefill and one decode step.
 
-The port of ``repro.runtime.steps`` without meshes or shardings (those wait
-for the port's distributed layer, ROADMAP A5: a mesh raises
-``NotImplementedError``).  PyTorch runs eagerly, so a step is a plain
-function: the trainer and :class:`~repro_torch.runtime.server.Server` call
-it directly, and the capture frontend traces it whole
-(:func:`repro_torch.core.capture.capture_bundle`).
+The port of ``repro.runtime.steps``: the single source of truth for the
+train/prefill/decode step functions, their abstract inputs and their
+shardings, used by the trainer and :class:`~repro_torch.runtime.server.Server`
+(which call a step directly), the dry-run (``launch/dryrun.py``) and the
+capture frontend (:func:`repro_torch.core.capture.capture_bundle`), which
+traces a step whole.  PyTorch runs eagerly, so a step is a plain function.
+
+On a mesh (a ``DeviceMesh`` over the default process group) the state and
+the batches are DTensors laid out by the logical rules
+(:mod:`repro_torch.distributed.sharding`), and the step runs under those
+rules and ``implicit_replication`` (a plain tensor the model makes, a
+position or a mask, is the same on every rank), so every ``lc`` in the
+models redistributes as the reference's sharding constraints do.  Each
+rank runs the same program on its shards.
 
 The training step's gradients.  The parameters are stacked on a leading
 (L, ...) layer axis, as the reference keeps them.  Autograd through
@@ -18,6 +26,7 @@ is written once, into its slot.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
@@ -25,27 +34,73 @@ import torch
 
 from repro_torch.config import RunConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (axes_to_pspec, even_placements, logical_rules,
+                                              place, use_rules, zip_axes)
 from repro_torch.models import build_model
 from repro_torch.optim import (TrainState, abstract_state, adamw_update, init_state,
-                               tree_leaves, tree_map, warmup_cosine)
-
-#: the message of every mesh refusal
-MESH_WAITS = ("meshes and shardings wait for the port's distributed layer "
-              "(ROADMAP A5); run without a mesh")
+                               state_axes, tree_leaves, tree_map, warmup_cosine)
 
 
 @dataclass
 class StepBundle:
-    """A step function and its abstract inputs (``meta`` tensors: shapes
-    and dtypes, no storage), the reference's ``StepBundle`` without
-    shardings."""
+    """A step function, its abstract inputs (``meta`` tensors: global
+    shapes and dtypes, no storage) and, on a mesh, the layout of its inputs
+    and outputs: trees of ``(mesh, placements)`` pairs (the reference's
+    ``NamedSharding`` trees), the metrics replicated."""
     fn: Callable
     abstract_inputs: Tuple[Any, ...]
+    in_shardings: Optional[Tuple[Any, ...]] = None
+    out_shardings: Optional[Any] = None
+    mesh: Any = None
 
 
-def _no_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError(MESH_WAITS)
+def run_rules(run_cfg: RunConfig, model):
+    """The logical rules of one run: the mesh's and sharding config's, the
+    model's overrides, and the batch replicated where it does not divide."""
+    rules = logical_rules(run_cfg.mesh, run_cfg.sharding)
+    rules.update(model.logical_overrides(run_cfg.mesh))
+    mesh_cfg = run_cfg.mesh
+    # batch divisibility: long_500k (batch=1) can't shard batch over data —
+    # replicate batch and turn on sequence-parallel caches instead
+    batch_ax = rules.get("batch")
+    if batch_ax is not None:
+        axes = (batch_ax,) if isinstance(batch_ax, str) else batch_ax
+        div = 1
+        for a in axes:
+            div *= mesh_cfg.axis_size(a)
+        if run_cfg.shape.global_batch % max(div, 1) != 0:
+            rules["batch"] = None
+            rules["kv_seq"] = "data"
+    return rules
+
+
+def _ambient(fn: Callable, rules, mesh) -> Callable:
+    """``fn`` under the rules and mesh (nothing without a mesh)."""
+    if mesh is None:
+        return fn
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        from torch.distributed.tensor.experimental import implicit_replication
+        with use_rules(rules, mesh), implicit_replication():
+            return fn(*args)
+    return wrapped
+
+
+def _layout(shapes: Any, axes: Any, rules, mesh) -> Any:
+    """The ``(mesh, placements)`` of every tensor of ``shapes`` (a tree of
+    meta tensors, or ints, which stay as they are) by its logical axes."""
+    def one(t, a):
+        if not isinstance(t, torch.Tensor):
+            return None
+        return mesh, even_placements(t.shape, axes_to_pspec(a, rules), mesh)
+    return zip_axes(one, shapes, axes)
+
+
+def _replicated_metrics(metrics: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The metrics as plain tensors, each rank holding the whole value."""
+    from torch.distributed.tensor import DTensor
+    return {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in metrics.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -84,11 +139,31 @@ def loss_and_grads(model, params: Mapping[str, Any], batch: Mapping[str, torch.T
 
 
 def _microbatches(batch: Mapping[str, torch.Tensor], accum: int):
+    """``accum`` equal microbatches of the batch's rows: consecutive rows,
+    or on a mesh consecutive rows of each rank's shard (so no rank sends a
+    row; the step sums over all rows either way)."""
     b = next(iter(batch.values())).shape[0]
     if b % accum:
         raise ValueError(f"batch {b} is not a multiple of accum_steps {accum}")
-    n = b // accum
-    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()} for i in range(accum)]
+    return [{k: _rows(v, i, accum) for k, v in batch.items()} for i in range(accum)]
+
+
+def _rows(t: torch.Tensor, i: int, accum: int) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        n = t.shape[0] // accum
+        return t[i * n:(i + 1) * n]
+    local = t.to_local()
+    n = local.shape[0] // accum
+    if local.shape[0] % accum:
+        raise ValueError(f"a rank's {local.shape[0]} rows are not {accum} microbatches")
+    shape = (t.shape[0] // accum,) + tuple(t.shape[1:])
+    stride, step = [], 1
+    for d in reversed(shape):          # contiguous, as the local slice is
+        stride.insert(0, step)
+        step *= d
+    return DTensor.from_local(local[i * n:(i + 1) * n], t.device_mesh, t.placements,
+                              run_check=False, shape=shape, stride=tuple(stride))
 
 
 def train_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
@@ -96,9 +171,10 @@ def train_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
     gradients (``accum_steps`` microbatches summed in fp32, their metrics
     averaged, as the reference's scan does), then one AdamW update.  The
     update is in place: the state passed in is the state returned, advanced
-    (the reference donates it)."""
-    _no_mesh(mesh)
+    (the reference donates it).  On a mesh the state and batch are DTensors
+    laid out as ``in_shardings`` says, and the metrics come back replicated."""
     model = build_model(run_cfg.model, run_cfg.sharding)
+    rules = run_rules(run_cfg, model)
     lr_fn = warmup_cosine(run_cfg.train)
     accum = max(run_cfg.train.accum_steps, 1)
 
@@ -107,8 +183,7 @@ def train_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
             grads = tree_map(torch.zeros_like, state.params)
             loss, metrics = loss_and_grads(model, state.params, batch, grads)
         else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
             micro = tree_map(torch.zeros_like, state.params)
             loss = torch.zeros((), dtype=torch.float32, device=state.step.device)
             runs = []
@@ -128,10 +203,19 @@ def train_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
-        return state, metrics
+        return state, _replicated_metrics(metrics)
 
-    batch_specs, _ = model.train_input_specs(run_cfg.shape)
-    return StepBundle(train_step, (abstract_state(model.abstract()), batch_specs))
+    batch_specs, batch_axes = model.train_input_specs(run_cfg.shape)
+    abstract = abstract_state(model.abstract())
+    in_sh = out_sh = None
+    if mesh is not None:
+        st = state_axes(model.axes())
+        state_sh = _layout(abstract._asdict(), st._asdict(), rules, mesh)
+        state_sh = TrainState(**dict(state_sh, step=None))   # the step: a plain tensor
+        in_sh = (state_sh, _layout(batch_specs, batch_axes, rules, mesh))
+        out_sh = (state_sh, None)
+    return StepBundle(_ambient(train_step, rules, mesh), (abstract, batch_specs),
+                      in_sh, out_sh, mesh)
 
 
 def init_train_state(run_cfg: RunConfig, seed: int = 0,
@@ -139,10 +223,13 @@ def init_train_state(run_cfg: RunConfig, seed: int = 0,
                      mesh: Any = None) -> TrainState:
     """The first training state: the model's random weights from ``seed``,
     drawn on ``device`` (default cuda), fp32 master copies and zero
-    moments."""
-    _no_mesh(mesh)
+    moments.  On a mesh every rank draws the same weights and keeps its
+    shard of each (laid out by ``state_axes``), one leaf at a time."""
     model = build_model(run_cfg.model, run_cfg.sharding)
-    return init_state(model.init(seed=seed, device=resolve_device(device)))
+    params = model.init(seed=seed, device=resolve_device(device))
+    if mesh is not None:
+        params = place(params, model.axes(), run_rules(run_cfg, model), mesh)
+    return init_state(params)
 
 
 # ---------------------------------------------------------------------------
@@ -164,3 +251,58 @@ def decode_step(model, params: Mapping[str, Any], cache: Mapping[str, Any],
     """(logits, advanced cache) of one token per sequence; the cache's
     tensors are updated in place."""
     return model.decode_step(params, cache, batch)
+
+
+def _logits_spec(run_cfg: RunConfig, params_specs: Any) -> torch.Tensor:
+    """One step's (b, 1, padded vocab) logits, as a ``meta`` tensor."""
+    return torch.empty((run_cfg.shape.global_batch, 1, params_specs["head"].shape[-1]),
+                       device="meta")
+
+
+def prefill_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
+    """The prefill ``fn(params, batch) -> (last-token logits, cache)``; on a
+    mesh the params and prompts are DTensors laid out as ``in_shardings``
+    says, and the logits and cache come back as ``out_shardings`` says."""
+    model = build_model(run_cfg.model, run_cfg.sharding)
+    rules = run_rules(run_cfg, model)
+    fn = _ambient(functools.partial(prefill_step, model), rules, mesh)
+    params_specs = model.abstract()
+    batch_specs, batch_axes = model.prefill_input_specs(run_cfg.shape)
+    in_sh = out_sh = None
+    if mesh is not None:
+        cache_specs, cache_axes, _, _ = model.decode_state_specs(run_cfg.shape)
+        in_sh = (_layout(params_specs, model.axes(), rules, mesh),
+                 _layout(batch_specs, batch_axes, rules, mesh))
+        logits = _logits_spec(run_cfg, params_specs)
+        out_sh = (_layout(logits, ("batch", None, "vocab"), rules, mesh),
+                  _layout(cache_specs, cache_axes, rules, mesh))
+    return StepBundle(fn, (params_specs, batch_specs), in_sh, out_sh, mesh)
+
+
+def decode_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
+    """One-token ``fn(params, cache, batch) -> (logits, cache)`` against a
+    full-length cache (the decode_* shapes); the cache is updated in place
+    (the reference donates it)."""
+    model = build_model(run_cfg.model, run_cfg.sharding)
+    rules = run_rules(run_cfg, model)
+    fn = _ambient(functools.partial(decode_step, model), rules, mesh)
+    params_specs = model.abstract()
+    cache_specs, cache_axes, tok_specs, tok_axes = model.decode_state_specs(run_cfg.shape)
+    in_sh = out_sh = None
+    if mesh is not None:
+        cache_sh = _layout(cache_specs, cache_axes, rules, mesh)
+        in_sh = (_layout(params_specs, model.axes(), rules, mesh), cache_sh,
+                 _layout(tok_specs, tok_axes, rules, mesh))
+        logits = _logits_spec(run_cfg, params_specs)
+        out_sh = (_layout(logits, ("batch", None, "vocab"), rules, mesh), cache_sh)
+    return StepBundle(fn, (params_specs, cache_specs, tok_specs), in_sh, out_sh, mesh)
+
+
+def bundle_for(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
+    """Pick the step kind the shape dictates (train/prefill/decode)."""
+    kind = run_cfg.shape.kind
+    if kind == "train":
+        return train_bundle(run_cfg, mesh)
+    if kind == "prefill":
+        return prefill_bundle(run_cfg, mesh)
+    return decode_bundle(run_cfg, mesh)

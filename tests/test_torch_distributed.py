@@ -1,0 +1,289 @@
+"""The port's distributed layer against the reference's, on the CPU.
+
+The multi-rank cases run four gloo ranks, one process each
+(``tests/torch_dist_cases.py``), each case in a subprocess with a timeout of
+its own (and each rank's process group with one), so nothing can hang the
+suite:
+
+* int8 compression: ``quantize_int8`` bit-exact with the reference's; the
+  ``compressed_psum_mean`` of four ranks within ``max|x|/127`` of the exact
+  mean and within 1e-6 of the reference's own, computed by its shard_map on
+  a 4-device host platform;
+* ``pipeline_apply`` at S = 4, M = 6, b = 2, d = 8 equal to the sequential
+  stage math (rtol/atol 2e-5), forward and gradient;
+* one llama3-8b smoke train step on a (2, 2) data x model mesh with fsdp, in
+  fp32, from the reference's state (``state_from_jax``): the loss and metrics
+  within 1e-5 (rtol), the new params and master within 2e-5 and m and v
+  within 1e-5 of each tensor's largest magnitude, as the unsharded step is
+  held in ``tests/test_torch_train.py``;
+* one fp32 smoke train step of the MoE and hybrid families on that mesh
+  against the same step without one: the loss within 1e-5 (rtol), the
+  grad norm within 1e-3 and the new first moments (the clipped gradients,
+  scaled) within 1e-3 of each tensor's largest magnitude.  The router's
+  and the Mamba2 conv's run on each rank's rows, and their gradients are
+  sums over the ranks that split the rows (read as replicated, they were
+  off by 0.86 and 1.04 of their scale).  zamba2's gradients read 2e-4 off
+  where two microbatchings of the plain step agree to 3e-7 (ROADMAP C);
+* prefill and three decode steps on that mesh against the same steps
+  without one (rtol 1e-4, atol 1e-5);
+* a sharded state saved by rank 0 alone, one shard at a time: the other
+  ranks make no new tensor, rank 0 none of a sharded leaf's full size but
+  its host copies, and the state restores resharded, each shard in a
+  storage of its own;
+* ``Trainer(use_mesh=True)`` with a failure that loses 2 of the 4 ranks:
+  one restart, resumed on a (1, 2) mesh from the resharded checkpoint.
+"""
+import dataclasses
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import config as RC
+from repro.distributed.compression import quantize_int8 as ref_quantize_int8
+from repro.models import build_model as ref_build_model
+from repro.optim import TrainState as RefTrainState
+from repro.runtime.steps import train_bundle as ref_train_bundle
+from repro_torch import config as C
+from repro_torch.checkpoint.store import list_steps
+from repro_torch.distributed.compression import dequantize_int8, quantize_int8
+
+ROOT = Path(__file__).resolve().parents[1]
+CASES = ROOT / "tests" / "torch_dist_cases.py"
+ARCH = "llama3-8b"
+TRAIN = dict(warmup_steps=2, total_steps=10, learning_rate=1e-2)
+
+
+def _run_case(case, tmp_path, **inputs):
+    np.savez(tmp_path / "in.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, str(CASES), case, str(tmp_path)],
+                         capture_output=True, text=True, timeout=240, env=env)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    return torch.load(tmp_path / "out.pt", weights_only=False)
+
+
+def _flat(tree, prefix):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _np_tree(specs, rng):
+    """Weights in the reference's tree: unit-scale activations, random norm
+    gains and biases (the reference initializes them to zero)."""
+    if not isinstance(specs, dict):
+        shape = specs.shape
+        if specs.init == "zeros":
+            return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+        std = 0.5 if specs.init == "embed" else 1.0 / np.sqrt(shape[-2])
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+    return {k: _np_tree(v, rng) for k, v in specs.items()}
+
+
+# -- compression -------------------------------------------------------------
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 3.0, 1e4])
+def test_quantize_int8_is_bit_exact_with_the_reference(scale):
+    x = (np.random.default_rng(0).standard_normal(4099) * scale).astype(np.float32)
+    x[:5] = [0.0, scale, -scale, 0.5 * scale, 1.5 * scale]   # halfway cases round to even
+    q, s = quantize_int8(torch.from_numpy(x))
+    rq, rs = ref_quantize_int8(jnp.asarray(x))
+    assert q.dtype == torch.int8
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    assert float(s) == float(rs)
+    err = (dequantize_int8(q, s) - torch.from_numpy(x)).abs().max()
+    assert float(err) <= float(np.abs(x).max()) / 127.0 + 1e-6
+
+
+REF_PSUM = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, numpy as np
+from jax.sharding import PartitionSpec as P
+from repro.distributed._compat import shard_map
+from repro.distributed.compression import compressed_psum_mean
+xs = np.load(sys.argv[1])
+mesh = jax.make_mesh((4,), ("data",))
+out = shard_map(lambda x: compressed_psum_mean(x, "data"), mesh=mesh, in_specs=P("data"),
+                out_specs=P("data"), check_vma=False)(xs)
+np.save(sys.argv[2], np.asarray(out))
+"""
+
+
+def test_compressed_psum_mean_matches_the_exact_mean_and_the_reference(tmp_path):
+    xs = np.random.default_rng(0).standard_normal((4, 64)).astype(np.float32)
+    np.save(tmp_path / "xs.npy", xs)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", REF_PSUM, str(tmp_path / "xs.npy"),
+                          str(tmp_path / "ref.npy")], capture_output=True, text=True,
+                         timeout=240, env=env)
+    assert res.returncode == 0, res.stderr[-2000:]
+    ref = np.load(tmp_path / "ref.npy")
+    got = _run_case("compression", tmp_path, xs=xs)
+    out = got["out"].numpy()
+    exact = np.broadcast_to(xs.mean(0, keepdims=True), xs.shape)
+    assert np.abs(out - exact).max() <= np.abs(xs).max() / 127.0 + 1e-6
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    # compressed_grad_mean: without residuals the same mean; with error
+    # feedback the mean of gradient plus residual, and the residual it
+    # leaves is what that mean missed
+    assert got["no_errors"] and torch.equal(got["plain"], got["out"][0])
+    assert torch.equal(got["with_feedback"], got["feedback_want"])
+    assert torch.equal(got["new_err"], got["x_plus_resid"] - got["with_feedback"])
+
+
+# -- pipeline ----------------------------------------------------------------
+
+def test_pipeline_apply_equals_the_sequential_stages_and_their_gradient(tmp_path):
+    """The stage math of ``tests/test_distributed.py``: tanh(x @ w_s) for s
+    = 0..3 on each of 6 microbatches; the gradient of the outputs' sum
+    against every stage's weights."""
+    S, M, b, d = 4, 6, 2, 8
+    rng = np.random.default_rng(1)
+    ws = (rng.standard_normal((S, d, d)) * 0.3).astype(np.float32)
+    x = rng.standard_normal((M, b, d)).astype(np.float32)
+    got = _run_case("pipeline", tmp_path, ws=ws, x=x)
+    wt = torch.from_numpy(ws).requires_grad_()
+    ref = torch.from_numpy(x)
+    for s in range(S):
+        ref = torch.tanh(ref @ wt[s])
+    grad, = torch.autograd.grad(ref.sum(), wt)
+    assert got["same_on_every_rank"]
+    np.testing.assert_allclose(got["out"].numpy(), ref.detach().numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got["grad"].numpy(), grad.numpy(), rtol=2e-5, atol=2e-5)
+
+
+# -- the sharded steps -------------------------------------------------------
+
+def test_sharded_train_step_matches_the_reference(tmp_path):
+    b, s = 4, 32
+    ref_cfg = dataclasses.replace(RC.get(ARCH).smoke, dtype="float32")
+    ref_rc = RC.RunConfig(model=ref_cfg, shape=RC.ShapeConfig("t", s, b, "train"),
+                          mesh=RC.SMOKE_MESH, train=RC.TrainConfig(**TRAIN))
+    rng = np.random.default_rng(3)
+    w = _np_tree(ref_build_model(ref_cfg).param_specs(), rng)
+    m = jax.tree.map(lambda a: (1e-2 * rng.standard_normal(a.shape)).astype(np.float32), w)
+    v = jax.tree.map(lambda a: (1e-4 * rng.random(a.shape)).astype(np.float32), w)
+    tok = rng.integers(0, ref_cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    ref_state = RefTrainState(jnp.int32(3), *(jax.tree.map(jnp.asarray, t)
+                                              for t in (w, w, m, v)))
+    ref_new, ref_m = jax.jit(ref_train_bundle(ref_rc).fn)(
+        ref_state, {k: jnp.asarray(x) for k, x in batch.items()})
+    got = _run_case("train", tmp_path, b=b, s=s, step=np.int32(3), **batch,
+                    **_flat(w, "params"), **_flat(w, "master"), **_flat(m, "m"),
+                    **_flat(v, "v"))
+    assert got["sharded"] == [True, True]
+    assert got["step"] == int(ref_new.step) == 4
+    for key in ("loss", "ce", "grad_norm"):
+        assert math.isclose(got["metrics"][key], float(ref_m[key]), rel_tol=1e-5), key
+    assert math.isclose(got["metrics"]["lr"], float(ref_m["lr"]), rel_tol=1e-6)
+    for name, tol in (("params", 2e-5), ("master", 2e-5), ("m", 1e-5), ("v", 1e-5)):
+        ref_leaves = dict(_leaves(jax.tree.map(np.asarray, getattr(ref_new, name))))
+        for path, leaf in _leaves(got[name]):
+            ref = ref_leaves[path]
+            err = np.abs(leaf.numpy() - ref).max() / max(np.abs(ref).max(), 1e-30)
+            assert err <= tol, (name, path, err)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-7b"])
+def test_sharded_train_step_of_a_family_matches_the_unsharded_one(tmp_path, arch):
+    got = _run_case("train_family", tmp_path, arch=np.array(arch))
+    for key in ("loss", "ce"):
+        assert math.isclose(got["metrics"][key], got["want_metrics"][key], rel_tol=1e-5), key
+    assert math.isclose(got["metrics"]["grad_norm"], got["want_metrics"]["grad_norm"],
+                        rel_tol=1e-3)
+    want = dict(_leaves(got["want_m"]))
+    for path, leaf in _leaves(got["m"]):
+        ref = want[path]
+        err = float((leaf - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        assert err <= 1e-3, (path, err)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "qwen3-moe-30b-a3b", "internvl2-2b",
+                                  "seamless-m4t-large-v2", "zamba2-7b", "rwkv6-1.6b"])
+def test_sharded_prefill_and_decode_match_the_unsharded_steps(tmp_path, arch):
+    """Dense, MoE (routing, dispatch and combine on each rank's rows, the
+    experts under local_map), a frontend, the encoder-decoder's
+    cross-attention and the two scans (each rank's rows and heads): the
+    logits of prefill and three decode steps, and the whole cache, on the
+    (2, 2) mesh against the same steps without one."""
+    cfg = dataclasses.replace(C.get(arch).smoke, dtype="float32")
+    from repro_torch.models import build_model
+    rng = np.random.default_rng(5)
+    w = _np_tree(build_model(cfg).param_specs(), rng)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int64)
+    extra = {}
+    if cfg.frontend != "none":
+        extra["frontend_emb"] = rng.standard_normal((4, cfg.frontend_seq, cfg.d_model)
+                                                    ).astype(np.float32)
+    got = _run_case("serve", tmp_path, arch=np.array(arch), tokens=tokens, **extra,
+                    **_flat(w, "params"))
+    np.testing.assert_allclose(got["got"].numpy(), got["want"].numpy(), rtol=1e-4, atol=1e-5)
+    cache, want = dict(_leaves(got["cache"])), dict(_leaves(got["cache_want"]))
+    assert set(cache) == set(want)
+    for path, leaf in cache.items():
+        if isinstance(leaf, torch.Tensor):
+            np.testing.assert_allclose(leaf.numpy(), want[path].numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=path)
+        else:
+            assert leaf == want[path], path
+
+
+def test_sharded_save_holds_no_leaf_whole_on_the_device(tmp_path):
+    from repro_torch.checkpoint.store import _flatten, restore
+    got = _run_case("save", tmp_path, dir=np.array(str(tmp_path / "ckpt")))
+    largest_shard = max(got["local_bytes"])
+    sharded = set(got["sharded_shapes"])
+    assert sharded, "the fsdp state has no sharded leaf"
+    for rank, sizes in enumerate(got["sizes"]):
+        if rank:
+            # a rank that does not write sends its own shards as they are
+            assert sizes == [], (rank, sorted(sizes)[-3:])
+        else:
+            # rank 0: one host copy a leaf, and one other rank's shard at a time
+            whole = [shape for n, shape in sizes if n > largest_shard or shape in sharded]
+            assert all(s in got["full_shapes"] for s in whole), whole
+            assert len(whole) <= got["n_leaves"]
+    assert got["same"] and got["same_layout"] and got["own_storage"]
+    # what rank 0 wrote is the state whole
+    saved = restore(str(tmp_path / "ckpt"), 1, got["whole"])
+    for (path, a), (_, b) in zip(_flatten(saved), _flatten(got["whole"]), strict=True):
+        assert torch.equal(a, b), path
+
+
+def test_trainer_on_a_mesh_restarts_on_the_ranks_left(tmp_path):
+    ckpt = tmp_path / "ckpt"
+    got = _run_case("trainer", tmp_path, ckpt_dir=np.array(str(ckpt)))
+    reports = got["reports"]
+    assert all(r["restarts"] == 1 for r in reports)
+    # ranks 0 and 1: steps 0-2, the failure at 3, steps 2-5 again from the
+    # step-2 checkpoint; ranks 2 and 3 left at the restart
+    for r in reports[:2]:
+        assert r["steps_done"] == 3 + 4 and len(r["losses"]) == 7
+        assert math.isfinite(r["final_loss"])
+    for r in reports[2:]:
+        assert r["steps_done"] == 3
+    # both ranks of the new mesh report the one (replicated) loss
+    assert reports[0]["losses"] == reports[1]["losses"]
+    assert list_steps(str(ckpt))[-1] == 6

@@ -69,6 +69,32 @@ def test_the_import_block_covers_the_training_slice():
     assert set(TRAINING_SLICE) <= set(_modules())
 
 
+#: the modules of the distributed slice and the three LM examples, which the
+#: import test above must cover
+DISTRIBUTED_SLICE = ("repro_torch.distributed", "repro_torch.distributed.mesh",
+                     "repro_torch.distributed.sharding", "repro_torch.distributed.compression",
+                     "repro_torch.distributed.pipeline", "repro_torch.launch.mesh",
+                     "repro_torch.launch.dryrun", "repro_torch.quickstart",
+                     "repro_torch.train_lm", "repro_torch.serve_llm")
+
+
+def test_the_import_block_covers_the_distributed_slice():
+    assert set(DISTRIBUTED_SLICE) <= set(_modules())
+
+
+def test_example_entry_points_need_cuda(monkeypatch):
+    from repro_torch import quickstart, serve_llm, train_lm
+    from repro_torch.distributed.mesh import build_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (quickstart.main, serve_llm.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="process group"):
+        build_mesh(C.SMOKE_MESH)
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -276,12 +276,20 @@ def test_state_from_jax_checks_the_tree():
 
 
 def test_a_mesh_waits_for_the_distributed_layer(tmp_path):
+    """The mesh path (the trainer's default, ``use_mesh=True``) builds its
+    mesh over the default process group, and says so when none is running;
+    the bundle lays out a state and batch on a mesh it is given (the runs on
+    one are ``tests/test_torch_distributed.py``'s)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.mesh import build_mesh
     _, rc = _run_cfgs("qwen1.5-4b")
-    for call in (lambda: train_bundle(rc, mesh=object()),
-                 lambda: init_train_state(rc, 0, "cpu", mesh=object()),
-                 lambda: Trainer(rc, device="cpu")):           # use_mesh=True
-        with pytest.raises(NotImplementedError, match="A5"):
-            call()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        build_mesh(rc.mesh, device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        Trainer(rc, device="cpu").train()                     # use_mesh=True
+    bundle = train_bundle(rc)
+    assert bundle.mesh is None and bundle.in_shardings is None
 
 
 # -- data ------------------------------------------------------------------
@@ -532,9 +540,20 @@ def test_launch_train_without_a_ckpt_dir_starts_fresh(capsys):
 
 
 def test_launch_train_full_path_waits_for_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="A5"):
+    """The full path trains on a mesh, after an up-front check that its
+    devices hold the step: train_4k's batch of 256 at qwen1.5-4b (63.2 GB of
+    state and 214.7 GB of saved layer inputs) is refused before any weight
+    is drawn, naming the bytes."""
+    with pytest.raises(MemoryError, match=r"needs at least 278\.0 GB a device on a "
+                                          r"1-device mesh"):
         launch_train.main(["--arch", "qwen1.5-4b", "--device", "cpu", "--steps", "1",
                            "--ckpt-dir", str(tmp_path)])
+    rc = dataclasses.replace(_run_cfgs("qwen1.5-4b")[1], model=C.get("qwen1.5-4b").full,
+                             shape=C.TRAIN_4K, mesh=C.SINGLE_POD_MESH)
+    assert launch_train.step_bytes(rc) / 256 < 16e9      # the production mesh holds it
+    assert launch_train.mesh_for(1, False) == C.SMOKE_MESH
+    assert launch_train.mesh_for(8, False).shape == (1, 8)
+    assert launch_train.mesh_for(512, True) == C.MULTI_POD_MESH
 
 
 def test_flash_backward_in_pieces_equals_the_whole(monkeypatch):
