@@ -51,6 +51,16 @@ kernel's launch count set to 0 just before and read just after:
   microbatches extrapolated from 4 cut traces) on the 256-rank mesh (23).
   NCCL takes one rank a card, so the semantics of several ranks are held
   on the CPU (gloo, ``tests/test_torch_distributed.py``).
+* the fleet layers (host work beside the card) — ``python -m
+  repro_torch.cluster --cost capture --devices 4xh100`` on the default
+  40-job trace, each class's smoke train step captured on cuda fake
+  tensors, plain, with failures and checkpoints, and with the time-lapse,
+  doctor, validate and manifest outputs, and ``python -m
+  repro_torch.cluster_quickstart --capture`` (24); ``python -m
+  repro_torch.analysis lenet --full`` with ``--timelapse``, ``--doctor``,
+  ``--manifest`` and ``--spans``, ``python -m repro_torch.obs diff`` and
+  ``doctor`` (25); ``python -m repro_torch.validate`` on the committed
+  Alibaba fixture under SJF (26).
 
 Then it times each kernel (fp32, bf16 and fp16), its plain version and the
 one PyTorch library call that computes the same function, beside the card's
@@ -2639,6 +2649,237 @@ def smoke_serve_phase():
     return outs
 
 
+# the fleet layers (phases 24-26): the reference CLI's default trace
+# (synthetic:poisson, 40 jobs at 1 job/s, seed 0: the lenet, llama3-8b and
+# qwen3-moe-30b classes) on four H100 slots, each class's smoke train step
+# captured on cuda fake tensors
+FLEET_DEVICES = "4xh100"
+FLEET_FAILURES = "mtbf:120,mttr:10"
+FLEET_CHECKPOINT = "every:30"
+VALIDATE_FIXTURE = ROOT / "tests" / "data" / "alibaba_fixture"
+
+
+def _run_all(cmds, timeout=600):
+    """Run the commands (name -> argv) at once from the repository root;
+    return name -> (returncode, stdout, stderr, seconds).  Every process
+    is killed at the end, whatever happens."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True, env=env, cwd=str(ROOT))
+             for k, argv in cmds.items()}
+    out = {}
+    try:
+        for k, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=timeout)
+            out[k] = (proc.returncode, stdout, stderr, time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _fleet_commands():
+    """Every independent command of phases 24-26 (name -> argv); they run
+    all at once, beside phase 24's work in this process."""
+    out_dir = ROOT / "chiprun_out" / "fleet"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cli = [sys.executable, "-m", "repro_torch.cluster", "--cost", "capture", "--devices",
+           FLEET_DEVICES]
+    return {
+        "plain": cli + ["--json", str(out_dir / "cluster.json")],
+        "faults": cli + ["--failures", FLEET_FAILURES, "--checkpoint", FLEET_CHECKPOINT,
+                         "--json", str(out_dir / "cluster_faults.json")],
+        "obs": cli + ["--timelapse", str(out_dir / "cluster_timelapse.json"), "--doctor",
+                      "--validate", "--manifest", str(out_dir / "cluster_manifest.json")],
+        "quickstart": [sys.executable, "-m", "repro_torch.cluster_quickstart", "--capture"],
+        "analysis": [sys.executable, "-m", "repro_torch.analysis", "lenet", "--full",
+                     "--timelapse", "-", "--doctor", "--manifest",
+                     str(out_dir / "lenet_manifest_A.json"), "--spans", "-"],
+        "doctor_lenet": [sys.executable, "-m", "repro_torch.obs", "doctor", "lenet", "--hw",
+                         "h100"],
+        "doctor_camping": [sys.executable, "-m", "repro_torch.obs", "doctor", "camping",
+                           "--expect-top", "hbm-channel-camping"],
+        "validate": [sys.executable, "-m", "repro_torch.validate", "--trace",
+                     str(VALIDATE_FIXTURE), "--policy", "sjf", "--json",
+                     str(out_dir / "validate.json")],
+    }
+
+
+def cluster_phase():
+    """Phase 24: ``python -m repro_torch.cluster --cost capture --devices
+    4xh100`` on the default trace, plain, with failures and checkpoints, and
+    with the time-lapse, doctor, validate and manifest outputs, and
+    ``python -m repro_torch.cluster_quickstart --capture`` (one process
+    each, all at once); meanwhile the same plain run in this process, each
+    class's capture and simulation timed (host seconds: the capture traces
+    the step on fake tensors, nothing runs on the card)."""
+    from repro_torch.cluster import ClusterSim, Fleet, make_policy, synthetic_trace
+    from repro_torch.cluster.devices import CostModel, captured_modules
+    from repro_torch.validate.queueing import validate_cluster
+    phase(f"24. the fleet: python -m repro_torch.cluster --cost capture --devices {FLEET_DEVICES} "
+          f"(40 jobs; capture on cuda fake tensors; host time, {CARD})")
+    import threading
+    out_dir = ROOT / "chiprun_out" / "fleet"
+    runs = _fleet_commands()
+    results = {}
+    worker = threading.Thread(target=lambda: results.update(_run_all(runs)))
+    worker.start()
+    try:
+        trace = synthetic_trace("synthetic:poisson", n_jobs=40, rate_jobs_per_s=1.0, seed=0)
+        build = captured_modules(trace, device="cuda")
+        capture_s = {}
+
+        def timed(job_class):
+            t0 = time.perf_counter()
+            module = build(job_class)
+            capture_s[job_class] = time.perf_counter() - t0
+            return module
+        cost = CostModel(timed)
+        fleet = Fleet.from_spec(FLEET_DEVICES)
+        hw = fleet.slots[0].hw
+        classes = {}
+        for jc in sorted({j.job_class for j in trace.jobs}):
+            t0 = time.perf_counter()
+            rep = cost.report(jc, hw)
+            sim_s = time.perf_counter() - t0 - capture_s[jc]
+            classes[jc] = {"capture_s": capture_s[jc], "simulate_s": sim_s,
+                           "step_s": rep.total_seconds, "peak_hbm_bytes": rep.peak_hbm_bytes}
+            print(f"  {jc}: capture {capture_s[jc]:.2f} s, simulation {sim_s:.3f} s (host); "
+                  f"simulated step {rep.total_seconds * 1e3:.4f} ms on {hw.name}, peak HBM "
+                  f"{rep.peak_hbm_bytes / 2**20:.2f} MiB")
+            check(rep.total_seconds > 0 and rep.peak_hbm_bytes > 0, f"{jc}: an empty report")
+        t0 = time.perf_counter()
+        rep = ClusterSim(fleet, cost, make_policy("fifo")).run(trace)
+        events_s = time.perf_counter() - t0
+        s = rep.summary()
+        busy = rep.reconcile_busy()
+        print(f"  in process (each class priced first): makespan_s {s['makespan_s']:.6f}, goodput "
+              f"{s['goodput_fraction']:.6f}, cache_hit_rate {s['cache_hit_rate']:.6f}, "
+              f"reconcile_busy() {busy:.3e}; event loop {events_s:.3f} s (host)")
+        check(busy <= 0.01, f"the fleet's busy time does not reconcile: {busy}")
+        vrep = validate_cluster(rep)
+    finally:
+        worker.join()     # every process ends before the phase does
+    check(set(results) == set(runs), "a fleet CLI did not finish")
+    for name, (rc, stdout, stderr, wall) in results.items():
+        print(f"  {' '.join(runs[name][2:])}: rc {rc}, collected {wall:.1f} s into the phase")
+    rc, stdout, stderr, _ = results["plain"]
+    check(rc == 0, f"the cluster CLI failed: {stderr[-2000:]}")
+    doc = json.loads((out_dir / "cluster.json").read_text())
+    cs = doc["summary"]
+    print(f"  the CLI's run: makespan_s {cs['makespan_s']:.6f}, goodput "
+          f"{cs['goodput_fraction']:.6f}, cache_hit_rate {cs['cache_hit_rate']:.6f}, "
+          f"reconcile_busy() {doc['reconcile_busy_rel_error']:.3e}")
+    # the same run but for the cache counters: this process priced each
+    # class once before its run (3 more hits)
+    counters = {"cache_hits", "cache_hit_rate"}
+    mine = json.loads(json.dumps(s))
+    check({k: v for k, v in cs.items() if k not in counters}
+          == {k: v for k, v in mine.items() if k not in counters}
+          and doc["reconcile_busy_rel_error"] <= 0.01,
+          "the CLI's run is not the in-process run, or does not reconcile")
+    rc, stdout, stderr, _ = results["faults"]
+    check(rc == 0, f"the cluster CLI with failures failed: {stderr[-2000:]}")
+    f = json.loads((out_dir / "cluster_faults.json").read_text())
+    fs = f["summary"]
+    print(f"  with --failures {FLEET_FAILURES} --checkpoint {FLEET_CHECKPOINT}: makespan_s "
+          f"{fs['makespan_s']:.6f}, goodput {fs['goodput_fraction']:.6f}, cache_hit_rate "
+          f"{fs['cache_hit_rate']:.6f}, reconcile_busy() {f['reconcile_busy_rel_error']:.3e}, "
+          f"{fs['device_failures']} device failures, {fs['recoveries']} recoveries")
+    check(f["reconcile_busy_rel_error"] <= 0.01 and fs["device_failures"] > 0,
+          "the faulted fleet does not reconcile, or saw no failure")
+    rc, stdout, stderr, _ = results["obs"]
+    failed = [c.name for c in vrep.checks if not c.ok]
+    print(f"  --validate: {'PASSED' if vrep.passed else 'FAILED'} in process, failed checks "
+          f"{failed}, CLI rc {rc}")
+    # every conservation identity holds; the M/G/k band (an approximation) is
+    # reported as it comes, and the CLI's exit code must agree with it
+    check(set(failed) <= {"mgk-queueing-delay"} and rc == (0 if vrep.passed else 1),
+          f"the fleet's identities fail ({failed}) or the CLI disagrees (rc {rc}): "
+          f"{stderr[-1500:]}")
+    check("doctor:" in stdout, "the cluster CLI printed no doctor table")
+    man = json.loads((out_dir / "cluster_manifest.json").read_text())
+    lapse = json.loads((out_dir / "cluster_timelapse.json").read_text())
+    check(man["kind"] == "cluster" and lapse["num_intervals"] == 64,
+          "the cluster manifest or time-lapse is malformed")
+    rc, stdout, stderr, _ = results["quickstart"]
+    print(f"  python -m repro_torch.cluster_quickstart --capture: rc {rc}: "
+          f"{stdout.strip().splitlines()[-1] if stdout.strip() else ''}")
+    check(rc == 0, f"the cluster quickstart failed: {stderr[-2000:]}")
+    return {"classes": classes, "summary": cs, "reconcile_busy": busy,
+            "faults_summary": fs, "validate_failed": failed,
+            "wall_s": {k: v[3] for k, v in results.items()}, "results": results}
+
+
+def obs_phase(results):
+    """Phase 25: ``python -m repro_torch.analysis lenet --full --timelapse -
+    --doctor --manifest A --spans -`` on the card; ``python -m
+    repro_torch.obs diff`` of that manifest with itself (exit 0) and with a
+    copy with one number changed (exit 3, the reference's code for a
+    divergence); ``obs doctor lenet --hw h100`` (a capture on the card) and
+    ``obs doctor camping --expect-top hbm-channel-camping`` (run beside
+    phase 24)."""
+    phase(f"25. obs on the paper path: analysis --timelapse/--doctor/--manifest/--spans, obs "
+          f"diff, obs doctor (host time, {CARD})")
+    out_dir = ROOT / "chiprun_out" / "fleet"
+    a, b = out_dir / "lenet_manifest_A.json", out_dir / "lenet_manifest_B.json"
+    rc, stdout, stderr, analysis_s = results["analysis"]
+    print(f"  python -m repro_torch.analysis lenet --full --timelapse - --doctor --manifest A "
+          f"--spans -: rc {rc}, collected {analysis_s:.1f} s into phase 24")
+    check(rc == 0, f"the analysis CLI with the obs flags failed: {stderr[-2000:]}")
+    check("doctor: lenet" in stdout and '"reconcile_max_rel_error"' in stdout
+          and '"traceEvents"' in stdout, "the analysis CLI's obs outputs are missing")
+    man = json.loads(a.read_text())
+    check(man["kind"] == "engine" and man["config"]["hw"] == "h100",
+          f"the manifest is malformed: {list(man)}")
+    changed = dict(man, metrics=dict(man["metrics"]))
+    changed["metrics"]["total_seconds"] *= 1.5
+    b.write_text(json.dumps(changed))
+    rest = _run_all({
+        "diff_same": [sys.executable, "-m", "repro_torch.obs", "diff", str(a), str(a)],
+        "diff_changed": [sys.executable, "-m", "repro_torch.obs", "diff", str(a), str(b)]})
+    rest.update({k: results[k] for k in ("doctor_lenet", "doctor_camping")})
+    for name, (rc, stdout, stderr, wall) in rest.items():
+        print(f"  obs {name}: rc {rc}, {wall:.1f} s")
+    check(rest["diff_same"][0] == 0, f"obs diff A A: {rest['diff_same'][2][-1500:]}")
+    check(rest["diff_changed"][0] == 3, f"obs diff A B: {rest['diff_changed'][2][-1500:]}")
+    rc, stdout, stderr, _ = rest["doctor_lenet"]
+    check(rc == 0 and "doctor:" in stdout, f"obs doctor lenet: {stderr[-1500:]}")
+    print("  " + "\n  ".join(stdout.strip().splitlines()[:4]))
+    check(rest["doctor_camping"][0] == 0, f"obs doctor camping: {rest['doctor_camping'][2][-1500:]}")
+    return {"analysis_s": analysis_s, "codes": {k: v[0] for k, v in rest.items()}}
+
+
+def validate_phase(results):
+    """Phase 26: ``python -m repro_torch.validate`` on the committed Alibaba
+    fixture under SJF (run beside phase 24), held to what the reference's
+    ``test_fixture_passes_under_sjf`` holds: utilization at most 0.7, both
+    Little's-law residuals under 1%, the M/G/k delay ungated within 25%, and
+    every check passed."""
+    phase(f"26. python -m repro_torch.validate --trace tests/data/alibaba_fixture --policy sjf "
+          f"(host time, {CARD})")
+    out = ROOT / "chiprun_out" / "fleet" / "validate.json"
+    rc, stdout, stderr, wall = results["validate"]
+    print(f"  rc {rc}, {wall:.1f} s: {stdout.strip().splitlines()[0] if stdout.strip() else ''}")
+    check(rc == 0, f"validate failed: {stdout[-1500:]} {stderr[-1500:]}")
+    doc = json.loads(out.read_text())
+    by = {c["name"]: c for c in doc["checks"]}
+    mgk = by["mgk-queueing-delay"]
+    print(f"  utilization {doc['summary']['utilization']:.6f}; littles-law-system "
+          f"{by['littles-law-system']['residual']:.3e}, littles-law-queue "
+          f"{by['littles-law-queue']['residual']:.3e}, mgk-queueing-delay "
+          f"{mgk['residual']:.6f} (gated {mgk['gated']})")
+    check(doc["summary"]["utilization"] <= 0.7 and by["littles-law-system"]["residual"] < 0.01
+          and by["littles-law-queue"]["residual"] < 0.01 and not mgk["gated"]
+          and mgk["residual"] < 0.25 and doc["passed"], "the fixture fails its checks")
+    return {"wall_s": wall, "mgk_residual": mgk["residual"],
+            "utilization": doc["summary"]["utilization"]}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: FAIL: {SRC / 'repro_torch'} not found; run from a "
@@ -2672,6 +2913,9 @@ def main() -> int:
         smokes = smoke_serve_phase()
         meshed = mesh_phase(train)
         dryrun = dryrun_phase(meshed)
+        fleet = {"cluster": cluster_phase()}
+        results = fleet["cluster"].pop("results")
+        fleet.update(obs=obs_phase(results), validate=validate_phase(results))
         flash = kernels[-1]
         flash["launches_by_path"] = {
             f"serve {SERVE_ARCH} FULL": serve_launches["flash_attention"],
@@ -2690,7 +2934,8 @@ def main() -> int:
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_analysis.json").write_text(json.dumps(
             {"correlation": correlation, "power": power, "gemma": gemma, "train": train,
-             "families": families, "smoke": smokes, "mesh": meshed, "dryrun": dryrun},
+             "families": families, "smoke": smokes, "mesh": meshed, "dryrun": dryrun,
+             "fleet": fleet},
             indent=1, default=str))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -17,9 +17,10 @@ HBM-channel report; optionally dumps chrome://tracing / JSON artifacts.
 LeNet's step is ``models/lenet.py::sgd_step``; a decoder LM's is
 ``runtime/steps.py::train_bundle`` at ``--seq-len`` x ``--batch``, captured
 from abstract inputs (``core/capture.py::capture_bundle``), so ``--full``
-allocates no weights.  The reference's ``--timelapse``, ``--manifest``,
-``--doctor`` and ``--spans`` wait for the port of ``repro.obs``' time-lapse,
-manifest and doctor modules.
+allocates no weights.  ``--timelapse``, ``--manifest``, ``--doctor`` and
+``--spans`` write the AerialVision time-lapse, a run manifest (compare two
+with ``python -m repro_torch.obs diff A B``), the doctor's ranked findings
+and the simulator's own spans; each composes into ``--chrome-trace``.
 """
 from __future__ import annotations
 
@@ -60,9 +61,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the retained per-op reference walk instead of "
                         "the batched tape scheduler (results are identical)")
     p.add_argument("--chrome-trace", metavar="PATH",
-                   help="write chrome://tracing JSON here ('-' for stdout)")
+                   help="write chrome://tracing JSON here ('-' for stdout); "
+                        "time-lapse counter tracks and self-spans (when "
+                        "--timelapse / --spans are active) compose into the "
+                        "same file")
     p.add_argument("--json", metavar="PATH",
                    help="write the full analysis JSON here ('-' for stdout)")
+    p.add_argument("--timelapse", metavar="PATH",
+                   help="write the AerialVision time-lapse JSON here "
+                        "('-' for stdout); also renders the ASCII heat "
+                        "strips ('!' marks channel-camping intervals)")
+    p.add_argument("--lapse-intervals", type=int, default=64,
+                   help="fixed sampling intervals for --timelapse "
+                        "(default 64)")
+    p.add_argument("--manifest", metavar="PATH",
+                   help="write a repro_torch.obs run manifest here (compare runs "
+                        "with `python -m repro_torch.obs diff A B`)")
+    p.add_argument("--doctor", action="store_true",
+                   help="run repro_torch.obs.doctor over the report: ranked "
+                        "findings with counterfactual recoverable_seconds "
+                        "(annotations also land in --chrome-trace)")
+    p.add_argument("--spans", metavar="PATH",
+                   help="enable the simulator self-span tracer and write its "
+                        "chrome trace here ('-' for stdout)")
     p.add_argument("--width", type=int, default=72,
                    help="ASCII timeline width in columns")
     p.add_argument("--self-profile", action="store_true",
@@ -110,9 +131,12 @@ def main(argv=None) -> int:
     from repro_torch.core import CHIPS, Simulator
     from repro_torch.device import resolve_device
     from repro_torch.obs.metrics import StageTimer
+    from repro_torch.obs.trace import TRACER
 
     timer = StageTimer("analysis")
     mark = timer.mark
+    if args.spans:
+        TRACER.enable()
 
     if args.buckets <= 0:
         print(f"--buckets must be positive, got {args.buckets}",
@@ -200,13 +224,55 @@ def main(argv=None) -> int:
           f"{ar.reconcile() * 100:.3f}%")
     mark("render")
 
+    lapse = None
+    if args.timelapse or args.manifest or args.chrome_trace or args.doctor:
+        from repro_torch.obs.timelapse import TimeLapse
+        lapse = TimeLapse.from_report(rep, num_intervals=args.lapse_intervals,
+                                      label=args.arch)
+    if args.timelapse:
+        print()
+        print(lapse.heat_strips(width=args.width))
+
+    doctor_rep = None
+    if args.doctor:
+        from repro_torch.obs.doctor import diagnose_engine
+        doctor_rep = diagnose_engine(rep, engine=sim.engine,
+                                     module=cap.module, lapse=lapse,
+                                     label=args.arch)
+        print()
+        print(doctor_rep.table(width=args.width))
+    mark("doctor")
+
     outputs = []
     if args.chrome_trace:
-        outputs.append((args.chrome_trace, ar.to_chrome_trace()))
+        extra: list = lapse.to_chrome_events() if lapse is not None else []
+        if doctor_rep is not None:
+            extra = extra + doctor_rep.to_chrome_events()
+        if TRACER.enabled:
+            extra = extra + TRACER.to_chrome_events()
+        outputs.append((args.chrome_trace,
+                        ar.to_chrome_trace(extra_events=extra)))
     if args.json:
         outputs.append((args.json,
                         ar.to_json(indent=2,
                                    stage_seconds=timer.stage_seconds)))
+    if args.timelapse:
+        outputs.append((args.timelapse, lapse.to_json(indent=2)))
+    if args.manifest:
+        from repro_torch.obs.manifest import engine_manifest
+        man = engine_manifest(
+            rep,
+            config={"arch": args.arch, "full": args.full,
+                    "seq_len": args.seq_len, "batch": args.batch,
+                    "buckets": args.buckets, "hw": args.hw,
+                    "overlap": not args.no_overlap,
+                    "memory": not args.no_memory,
+                    "topology": args.topology or rep.hw.ici_topology,
+                    "scheduler": ("legacy" if args.legacy_scheduler
+                                  else "batched")},
+            label=args.arch, stage_seconds=timer.stage_seconds,
+            timelapse=lapse)
+        outputs.append((args.manifest, man.to_json()))
     for path, payload in outputs:
         if path == "-":
             print(payload)
@@ -215,6 +281,16 @@ def main(argv=None) -> int:
                 f.write(payload)
             print(f"wrote {path}", file=sys.stderr)
     mark("export")
+    if args.spans:
+        from repro_torch.obs.export import trace_json
+        payload = trace_json(TRACER.to_chrome_events())
+        if args.spans == "-":
+            print(payload)
+        else:
+            with open(args.spans, "w") as f:
+                f.write(payload)
+            print(f"wrote {args.spans} "
+                  f"({len(TRACER.records)} spans)", file=sys.stderr)
     if args.self_profile:
         print(timer.render(), file=sys.stderr)
     return 0

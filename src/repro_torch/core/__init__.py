@@ -50,6 +50,12 @@ class Simulator:
     def capture(self, fn, *example_args, **kw) -> Captured:
         return capture(fn, *example_args, **kw)
 
+    def capture_bundle(self, bundle, name: str = "step", device=None) -> Captured:
+        """A step bundle traced whole on fake tensors on ``device``
+        (default cuda): :func:`repro_torch.core.capture.capture_bundle`."""
+        from repro_torch.core.capture import capture_bundle
+        return capture_bundle(bundle, name=name, device=device)
+
     def performance(self, captured: Captured,
                     window: Optional[Tuple[int, int]] = None) -> SimReport:
         return self.engine.simulate(captured.module, window=window)

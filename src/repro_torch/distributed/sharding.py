@@ -327,26 +327,32 @@ def inner_dims(x) -> range:
     return range(1, x.ndim - 1)
 
 
-class _SeqWholeGrad(torch.autograd.Function):
-    """The identity, whose backward gathers the gradient's inner dims."""
+class _WholeGrad(torch.autograd.Function):
+    """The identity, whose backward gathers the gradient's dims ``dims``
+    (None: its inner dims) as :func:`gather_dims` does with ``unit``."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, dims, unit):
+        ctx.dims, ctx.unit = dims, unit
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return gather_dims(grad, inner_dims(grad))
+        dims = inner_dims(grad) if ctx.dims is None else ctx.dims
+        return gather_dims(grad, dims, unit=ctx.unit), None, None
 
 
-def seq_whole_grad(y):
-    """``y``, with its gradient's inner dims gathered (on a DTensor; a plain
+def whole_grad(y, dims: Optional[Sequence[int]] = None, unit: Optional[int] = None):
+    """``y``, with its gradient's dims ``dims`` (default its inner dims)
+    gathered as :func:`gather_dims` gathers them (on a DTensor; a plain
     tensor as it is): the output of a product, whose gradient a
-    sequence-split residual would otherwise hand back split."""
+    sequence-split residual would otherwise hand back split, or of a merge
+    of dims, whose backward splits the gradient again (``unit``: into how
+    many parts)."""
     from torch.distributed.tensor import DTensor
     if not isinstance(y, DTensor) or not torch.is_grad_enabled() or not y.requires_grad:
         return y
-    return _SeqWholeGrad.apply(y)
+    return _WholeGrad.apply(y, None if dims is None else tuple(dims), unit)
 
 
 class _SumOverGroup(torch.autograd.Function):

@@ -11,14 +11,14 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import gather_dims, inner_dims, lc, seq_whole_grad
+from repro_torch.distributed.sharding import gather_dims, inner_dims, lc, whole_grad
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -123,7 +123,8 @@ def _init_one(spec: ParamSpec, generator: torch.Generator,
 
 
 def init_params(specs: Any, generator: torch.Generator,
-                dtype: str = "float32") -> Any:
+                dtype: str = "float32",
+                keep: Optional[Callable[[torch.Tensor, ParamSpec], Any]] = None) -> Any:
     """Materialize a (nested) spec dict in the specs' order, on the
     generator's device.
 
@@ -137,8 +138,13 @@ def init_params(specs: Any, generator: torch.Generator,
     ``jax.random`` and ``torch.Generator`` draw different numbers from the
     same seed: to give both packages identical weights, make them with
     numpy and load them with :func:`~repro_torch.models.transformer.params_from_jax`.
+
+    ``keep(tensor, spec)``, where given, makes what the tree holds of each
+    tensor (a rank's shard of it) as soon as it is drawn, so the whole
+    tensor is freed before the next one is drawn.
     """
-    return _map_specs(lambda s: _init_one(s, generator, dtype), specs)
+    keep = keep or (lambda t, spec: t)
+    return _map_specs(lambda s: keep(_init_one(s, generator, dtype), s), specs)
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +167,7 @@ def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
     # on a mesh: the product folds (b, s) of x and, in its backward, of y's
     # gradient, so both are gathered along s first (see gather_dims)
-    y = seq_whole_grad(gather_dims(x, inner_dims(x)) @ w)
+    y = whole_grad(gather_dims(x, inner_dims(x)) @ w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

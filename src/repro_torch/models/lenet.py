@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.tiled_matmul.ops import matmul
 from repro_torch.models.conv_algos import conv2d
@@ -124,8 +124,29 @@ class LeNet(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return self.logits(dict(self.params), images)
 
-    def loss(self, params: Mapping[str, torch.Tensor], images: torch.Tensor,
-             labels: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def abstract(self) -> Dict[str, torch.Tensor]:
+        """The parameters as ``meta`` tensors: shapes and dtypes, no storage."""
+        dtype = torch_dtype(self.cfg.dtype)
+        return {k: torch.empty(s.shape, dtype=dtype, device="meta")
+                for k, s in self.param_specs().items()}
+
+    def train_input_specs(self, shape: ShapeConfig
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[str, ...]]]:
+        """The train batch as ``meta`` tensors, and its logical axes (the
+        reference model's)."""
+        cfg, b = self.cfg, shape.global_batch
+        specs = {"images": torch.empty((b, cfg.image_hw, cfg.image_hw, cfg.image_c),
+                                       dtype=torch.float32, device="meta"),
+                 "labels": torch.empty((b,), dtype=torch.int32, device="meta")}
+        axes = {"images": ("batch", "spatial", "spatial", "conv_in"), "labels": ("batch",)}
+        return specs, axes
+
+    def loss(self, params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean cross entropy, and the metrics, of a batch {"images",
+        "labels"} (the reference model's signature, which
+        :func:`repro_torch.runtime.steps.train_bundle` calls)."""
+        images, labels = batch["images"], batch["labels"]
         logits = self.logits(params, images)
         ce, _ = softmax_cross_entropy(logits, labels)
         acc = (logits.argmax(-1) == labels).float().mean()
@@ -141,7 +162,7 @@ def sgd_step(model: LeNet, params: Mapping[str, torch.Tensor],
     (forward, ``torch.autograd.grad``, update) by the capture frontend.
     """
     live = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss, metrics = model.loss(live, images, labels)
+    loss, metrics = model.loss(live, {"images": images, "labels": labels})
     grads = torch.autograd.grad(loss, list(live.values()))
     new = {k: (p - lr * g).detach() for (k, p), g in zip(live.items(), grads)}
     return new, loss.detach(), metrics["accuracy"].detach()

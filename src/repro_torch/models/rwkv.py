@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed.sharding import (gather_dims, inner_dims, lc, on_shards,
-                                              seq_whole_grad)
+                                              whole_grad)
 from repro_torch.models.layers import ParamSpec, dense, rms_norm
 
 CHUNK = 64   # the pairwise (i, j, dim) decay tensor is O(chunk^2 * d)
@@ -75,7 +75,7 @@ def _ddlerp(params: Dict, x: torch.Tensor, xs: torch.Tensor) -> Dict[str, torch.
     lora = gather_dims(dense(torch.tanh(base), params["lora_a"]), (-1,))
     lora = lora.reshape(x.shape[:2] + (len(MIX_NAMES), LORA_R))
     lora = gather_dims(lora, inner_dims(lora))
-    adj = seq_whole_grad(torch.einsum("bsmr,mrd->bsmd", lora, params["lora_b"]))
+    adj = whole_grad(torch.einsum("bsmr,mrd->bsmd", lora, params["lora_b"]))
     mix = params["mu_base"].to(x.dtype)[None, None] + adj
     return {name: x + dx * mix[:, :, i] for i, name in enumerate(MIX_NAMES)}
 

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed.sharding import lc, on_shards
+from repro_torch.distributed.sharding import gather_dims, lc, on_shards, whole_grad
 from repro_torch.models.layers import ParamSpec, dense, rms_norm
 
 HEADDIM = 64
@@ -116,6 +116,21 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.T
     return torch.cat(ys, dim=1), state
 
 
+def _heads(t: torch.Tensor, heads: int, headdim: int) -> torch.Tensor:
+    """(..., heads * headdim) -> (..., heads, headdim).  On a mesh the
+    channels are gathered first where the heads do not divide over the
+    ranks that split them (DTensor cannot unflatten an uneven split)."""
+    return gather_dims(t, (-1,), unit=heads).reshape(*t.shape[:-1], heads, headdim)
+
+
+def _merge_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(..., heads, headdim) -> (..., heads * headdim), the inverse of
+    :func:`_heads`: the head dim gathered first, and the merged gradient's
+    channels gathered where the heads do not divide over its ranks."""
+    merged = gather_dims(t, (-1,), unit=1).reshape(*t.shape[:-2], -1)
+    return whole_grad(merged, (-1,), unit=heads)
+
+
 def _mixer_inputs(params: Dict, cfg: ModelConfig, x: torch.Tensor):
     """The projections, the causal conv and dt: (z, xh (b, s, h, p), xdt,
     dA, B, C, the conv's raw input (b, s, c))."""
@@ -128,7 +143,7 @@ def _mixer_inputs(params: Dict, cfg: ModelConfig, x: torch.Tensor):
     xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"].float())       # (b, s, h)
     A = -torch.exp(params["a_log"].float())                       # (h,)
-    xh = lc(xs.reshape(b, s, heads, headdim), ("batch", None, "ssm_heads", None))
+    xh = lc(_heads(xs, heads, headdim), ("batch", None, "ssm_heads", None))
     xdt = (xh.float() * dt[..., None]).to(x.dtype)
     dA = lc(dt * A, ("batch", None, "ssm_heads"))                # (b, s, h)
     return z, xh, xdt, dA, B, C, xbc_raw
@@ -136,9 +151,9 @@ def _mixer_inputs(params: Dict, cfg: ModelConfig, x: torch.Tensor):
 
 def _mixer_out(params: Dict, cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
                xh: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    b, s = x.shape[:2]
+    heads = y.shape[2]
     y = y + xh * params["d_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(b, s, -1)
+    y = _merge_heads(y, heads)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
     return dense(y, params["out_proj"])
 
@@ -192,7 +207,6 @@ def ssm_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (b, 1, d); cache: {state: (b,h,p,n) fp32, conv: (b,w-1,c)}."""
     d_inner, heads, headdim, n = _dims(cfg)
-    b = x.shape[0]
     zxbcdt = dense(x, params["in_proj"])
     z, xs, B, C, dt = _split_proj(cfg, zxbcdt)
     xbc_new = torch.cat([xs, B, C], dim=-1)                          # (b, 1, c)
@@ -202,7 +216,7 @@ def ssm_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     xs1, B1, C1 = torch.split(xbc, [d_inner, n, n], dim=-1)          # (b, c)
     dt1 = F.softplus(dt[:, 0].float() + params["dt_bias"].float())  # (b, h)
     A = -torch.exp(params["a_log"].float())
-    xh = xs1.reshape(b, heads, headdim).float()
+    xh = _heads(xs1, heads, headdim).float()
     dA = torch.exp(dt1 * A)                                          # (b, h)
     hx, rows = ("batch", "ssm_heads", None), ("batch", None)
     y, state = on_shards(_ssd_step, (B1.float(), C1.float(), xh, dt1, dA, cache["state"]),
@@ -210,7 +224,7 @@ def ssm_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                           ("batch", "ssm_heads", None, None)),
                          (hx, ("batch", "ssm_heads", None, None)))
     y = y + xh * params["d_skip"].float()[None, :, None]
-    y = y.reshape(b, 1, d_inner).to(x.dtype)
+    y = _merge_heads(y, heads).unsqueeze(1).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
     out = dense(y, params["out_proj"])
     return out, {"state": state, "conv": window[:, 1:]}

@@ -151,10 +151,11 @@ class LMBase:
                          ("fsdp", "vocab"))
 
     def init(self, seed: int = 0,
-             device: Optional[Union[str, torch.device]] = None) -> Params:
-        """Random weights from ``seed``, drawn on ``device`` (default cuda)."""
+             device: Optional[Union[str, torch.device]] = None, keep=None) -> Params:
+        """Random weights from ``seed``, drawn on ``device`` (default cuda);
+        ``keep`` as :func:`~repro_torch.models.layers.init_params` takes it."""
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        return init_params(self.param_specs(), gen, self.cfg.dtype)
+        return init_params(self.param_specs(), gen, self.cfg.dtype, keep=keep)
 
     def abstract(self) -> Params:
         """The parameter tree as ``meta`` tensors: shapes and dtypes, no

@@ -34,8 +34,8 @@ import torch
 
 from repro_torch.config import RunConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (axes_to_pspec, even_placements, logical_rules,
-                                              place, use_rules, zip_axes)
+from repro_torch.distributed.sharding import (axes_to_pspec, distribute, even_placements,
+                                              logical_rules, use_rules, zip_axes)
 from repro_torch.models import build_model
 from repro_torch.optim import (TrainState, abstract_state, adamw_update, init_state,
                                state_axes, tree_leaves, tree_map, warmup_cosine)
@@ -166,6 +166,14 @@ def _rows(t: torch.Tensor, i: int, accum: int) -> torch.Tensor:
                               run_check=False, shape=shape, stride=tuple(stride))
 
 
+def _step_model(run_cfg: RunConfig):
+    """The run's model object.  LeNet's is made without weights (on
+    ``meta``): a step takes its params from the state, as an LM's does."""
+    if run_cfg.model.family == "conv":
+        return build_model(run_cfg.model, device="meta")
+    return build_model(run_cfg.model, run_cfg.sharding)
+
+
 def train_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
     """The training step ``fn(state, batch) -> (state, metrics)``: loss and
     gradients (``accum_steps`` microbatches summed in fp32, their metrics
@@ -173,7 +181,7 @@ def train_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
     update is in place: the state passed in is the state returned, advanced
     (the reference donates it).  On a mesh the state and batch are DTensors
     laid out as ``in_shardings`` says, and the metrics come back replicated."""
-    model = build_model(run_cfg.model, run_cfg.sharding)
+    model = _step_model(run_cfg)
     rules = run_rules(run_cfg, model)
     lr_fn = warmup_cosine(run_cfg.train)
     accum = max(run_cfg.train.accum_steps, 1)
@@ -224,12 +232,15 @@ def init_train_state(run_cfg: RunConfig, seed: int = 0,
     """The first training state: the model's random weights from ``seed``,
     drawn on ``device`` (default cuda), fp32 master copies and zero
     moments.  On a mesh every rank draws the same weights and keeps its
-    shard of each (laid out by ``state_axes``), one leaf at a time."""
+    shard of each (laid out by its logical axes) as it is drawn: the rank
+    holds at most one whole leaf at a time, as the reference's init jitted
+    with out-shardings does."""
     model = build_model(run_cfg.model, run_cfg.sharding)
-    params = model.init(seed=seed, device=resolve_device(device))
+    keep = None
     if mesh is not None:
-        params = place(params, model.axes(), run_rules(run_cfg, model), mesh)
-    return init_state(params)
+        rules = run_rules(run_cfg, model)
+        keep = lambda t, spec: distribute(t, spec.axes, rules, mesh)
+    return init_state(model.init(seed=seed, device=resolve_device(device), keep=keep))
 
 
 # ---------------------------------------------------------------------------

@@ -62,7 +62,7 @@ def test_logits_loss_and_grads_match_jax(algo, smoke):
     images = torch.from_numpy(batch["images"])
     labels = torch.from_numpy(batch["labels"]).long()
     logits = model.logits(tparams, images)
-    loss, aux = model.loss(tparams, images, labels)
+    loss, aux = model.loss(tparams, {"images": images, "labels": labels})
     grads = torch.autograd.grad(loss, list(tparams.values()))
 
     tol = _tols(algo)

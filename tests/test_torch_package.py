@@ -82,6 +82,26 @@ def test_the_import_block_covers_the_distributed_slice():
     assert set(DISTRIBUTED_SLICE) <= set(_modules())
 
 
+#: the fleet layers and their CLIs, which the import test above must cover
+FLEET_SLICE = tuple(f"repro_torch.{m}" for m in (
+    "cluster", "cluster.__main__", "cluster.devices", "cluster.events", "cluster.export",
+    "cluster.scheduler", "cluster.workload", "faults", "faults.pricing", "faults.processes",
+    "faults.reroute", "validate", "validate.__main__", "validate.fitting", "validate.ingest",
+    "validate.queueing", "obs.__main__", "obs.detectors", "obs.diff", "obs.doctor",
+    "obs.manifest", "obs.sentinel", "obs.stats", "obs.timelapse", "obs.whatif",
+    "cluster_quickstart"))
+
+
+def test_the_import_block_covers_the_fleet_slice():
+    assert set(FLEET_SLICE) <= set(_modules())
+
+
+def test_every_reference_module_but_the_jax_shim_has_its_counterpart():
+    ref = {p.relative_to(ROOT / "src" / "repro") for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(PKG) for p in PKG.rglob("*.py")}
+    assert ref - port == {Path("distributed") / "_compat.py"}
+
+
 def test_example_entry_points_need_cuda(monkeypatch):
     from repro_torch import quickstart, serve_llm, train_lm
     from repro_torch.distributed.mesh import build_mesh

@@ -120,14 +120,50 @@ def case_train(rank, inp):
             "v": _full(new.v), "sharded": sharded}
 
 
+class _Float64:
+    """Every float32 the code asks for made float64 (a function mode over
+    the step: ``.float()``, ``dtype=torch.float32`` and ``.to(torch.float32)``),
+    so a step runs in float64 end to end.  Autograd's recompute of a
+    checkpointed unit runs outside the mode, so the step runs without
+    recompute meanwhile (the values do not change)."""
+
+    def __init__(self):
+        from torch.overrides import TorchFunctionMode
+
+        class Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                kwargs = dict(kwargs or {})
+                if func is torch.Tensor.float:
+                    return args[0].to(torch.float64)
+                if kwargs.get("dtype") is torch.float32:
+                    kwargs["dtype"] = torch.float64
+                args = tuple(torch.float64 if a is torch.float32 else a for a in args)
+                return func(*args, **kwargs)
+        self.mode = Mode()
+
+    def __enter__(self):
+        from repro_torch.models import layers, transformer
+        self.saved = layers.checkpoint, transformer.checkpoint
+        layers.checkpoint = transformer.checkpoint = lambda fn, *a, **k: fn(*a)
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers, transformer
+        layers.checkpoint, transformer.checkpoint = self.saved
+        return self.mode.__exit__(*exc)
+
+
 def case_train_family(rank, inp):
-    """One fp32 smoke train step of a family on the (2, 2) mesh with fsdp
-    and the same step without a mesh, from the same state: the metrics and
-    the new first moments (the gradients, scaled) of both."""
+    """One smoke train step of a family on a data x model mesh (default
+    (2, 2)) with fsdp and the same step without a mesh, from the same
+    state, in fp32 and (``fp64`` set) in float64: the metrics and the new
+    first moments (the gradients, scaled) of both."""
     from repro_torch import config as C
     from repro_torch.data.synthetic import batches_for
     from repro_torch.distributed.sharding import place
     from repro_torch.models import build_model
+    from repro_torch.optim import init_state, tree_map
     from repro_torch.runtime.steps import init_train_state, run_rules, train_bundle
     cfg = dataclasses.replace(C.get(str(inp["arch"])).smoke, dtype="float32")
     shape = tuple(int(n) for n in inp.get("mesh", (2, 2)))
@@ -136,15 +172,73 @@ def case_train_family(rank, inp):
                      train=C.TrainConfig(**TRAIN))
     mesh = _mesh(shape, ("data", "model"))
     model = build_model(cfg, rc.sharding)
+    rules = run_rules(rc, model)
     batch = {k: torch.from_numpy(v) for k, v in next(batches_for(cfg, rc.shape, seed=0)).items()}
     _, batch_axes = model.train_input_specs(rc.shape)
+    sharded_batch = place(batch, batch_axes, rules, mesh)
+    out = {}
     plain, pm = train_bundle(rc).fn(init_train_state(rc, seed=0, device="cpu"), batch)
-    sharded, sm = train_bundle(rc, mesh).fn(
-        init_train_state(rc, seed=0, device="cpu", mesh=mesh),
-        place(batch, batch_axes, run_rules(rc, model), mesh))
-    return {"metrics": {k: float(v) for k, v in sm.items()},
-            "want_metrics": {k: float(v) for k, v in pm.items()},
-            "m": _full(sharded.m), "want_m": plain.m}
+    sharded, sm = train_bundle(rc, mesh).fn(init_train_state(rc, seed=0, device="cpu", mesh=mesh),
+                                            sharded_batch)
+    out["fp32"] = {"metrics": {k: float(v) for k, v in sm.items()},
+                   "want_metrics": {k: float(v) for k, v in pm.items()},
+                   "m": _full(sharded.m), "want_m": plain.m}
+    if not inp.get("fp64", False):
+        return out
+    def params():   # the step updates its state in place: a fresh copy each
+        return tree_map(torch.Tensor.double, init_train_state(rc, seed=0, device="cpu").params)
+    with _Float64():
+        plain, pm = train_bundle(rc).fn(init_state(params()), batch)
+        sharded, sm = train_bundle(rc, mesh).fn(
+            init_state(place(params(), model.axes(), rules, mesh)), sharded_batch)
+    out["fp64"] = {"metrics": {k: float(v) for k, v in sm.items()},
+                   "want_metrics": {k: float(v) for k, v in pm.items()},
+                   "m": _full(sharded.m), "want_m": plain.m}
+    return out
+
+
+def case_init(rank, inp):
+    """``init_train_state`` on the (2, 2) mesh against the plain one: the
+    weights, for each leaf drawn the earlier draws still alive then and
+    those alive at the end (kept whole as the rank's own shard), and the
+    checkpoint bytes (``tree_nbytes``) of both states."""
+    import weakref
+    from repro_torch.models import layers
+    from repro_torch.runtime.steps import init_train_state
+    rc = _run_cfg(4, 32)
+    mesh = _mesh((2, 2), ("data", "model"))
+    draws, live_at_draw = [], []
+    draw = layers._init_one
+
+    def hooked(*args, **kwargs):
+        live_at_draw.append([i for i, r in enumerate(draws) if r() is not None])
+        t = draw(*args, **kwargs)
+        draws.append(weakref.ref(t))
+        return t
+    layers._init_one = hooked
+    try:
+        state = init_train_state(rc, seed=0, device="cpu", mesh=mesh)
+    finally:
+        layers._init_one = draw
+    kept = [i for i, r in enumerate(draws) if r() is not None]
+    plain = init_train_state(rc, seed=0, device="cpu")
+    from repro_torch.faults.pricing import tree_nbytes
+    local = sum(t.to_local().numel() * t.element_size() for t in _leaves_of(list(state))
+                if type(t).__name__ == "DTensor")
+    return {"live_at_draw": live_at_draw, "kept": kept, "n_draws": len(draws),
+            "nbytes": tree_nbytes(state), "nbytes_plain": tree_nbytes(plain),
+            "local_nbytes": local,
+            "params": _full(state.params), "master": _full(state.master),
+            "want": plain.params, "sharded": [type(t).__name__ == "DTensor" and any(
+                p.is_shard() for p in t.placements) for t in _leaves_of(state.params)]}
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_of(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves_of(t)]
+    return [tree]
 
 
 class _Allocations:
@@ -239,9 +333,10 @@ def case_serve(rank, inp):
     cfg = dataclasses.replace(C.get(str(inp["arch"])).smoke, dtype="float32")
     tokens = torch.from_numpy(inp["tokens"]).long()
     b, s = tokens.shape
+    shape = tuple(int(n) for n in inp.get("mesh", (2, 2)))
     rc = C.RunConfig(model=cfg, shape=C.ShapeConfig("p", s, b, "prefill"),
-                     mesh=C.MeshConfig((2, 2), ("data", "model")))
-    mesh = _mesh((2, 2), ("data", "model"))
+                     mesh=C.MeshConfig(shape, ("data", "model")))
+    mesh = _mesh(shape, ("data", "model"))
     model = build_model(cfg)
     params = params_from_jax(_tree(inp, "params"), cfg)
     rules = run_rules(rc, model)
@@ -287,6 +382,7 @@ def case_trainer(rank, inp):
 
 
 def _worker(rank, case, directory, port):
+    torch.set_num_threads(max(1, (os.cpu_count() or WORLD) // WORLD))   # the cores, shared
     try:
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                 world_size=WORLD, timeout=datetime.timedelta(seconds=120))
