@@ -9,13 +9,17 @@ dims 16 to 256), then drives the port's three paths, each with every
 kernel's launch count set to 0 just before and read just after:
 
 * LeNet — ``repro_torch.lenet_repro.run``, the paper's experiments: train
-  LeNet (full width, batch 128, 60 SGD steps), capture and simulate one
+  LeNet (full width, batch 128, 60 SGD steps, the step replayed as a CUDA
+  graph), capture and simulate one
   step on the ``h100`` spec and correlate it per op class against the
   card's own kernel times for the captured program, the power model, the
   section V conv-algorithm loop, the phase analysis and the memory model;
 * serving — ``repro_torch.launch.serve.run``: llama3-8b at its full config
   (32 layers, bf16, random weights from seed 0) serves batch 4 x 2048-token
-  prompts for 16 new tokens, prefill attention in the flash kernel; then the
+  prompts for 16 new tokens, prefill attention in the flash kernel, the
+  prefill and decode steps replayed as CUDA graphs (``StepBundle.jit``, as
+  every served family below: a replay adds the launches its capture
+  recorded to each kernel's count); then the
   kernel is held to its plain version on each layer's served q, k, v, the
   prefill against the plain decode attention at full width, and the
   prefill and decode steps are captured and simulated on ``h100``; the
@@ -61,6 +65,13 @@ kernel's launch count set to 0 just before and read just after:
   ``--manifest`` and ``--spans``, ``python -m repro_torch.obs diff`` and
   ``doctor`` (25); ``python -m repro_torch.validate`` on the committed
   Alibaba fixture under SJF (26).
+* the compiled steps (27) — llama3-8b FULL served graphed and under
+  ``disable_jit`` (the same tokens; the prefill's and the first decode
+  step's logits bit for bit; warm prefill ms, decode tok/s and busy share
+  in both modes; 32 flash launches inside the prefill's graph), the
+  LeNet-full step graphed and eager from one state (params bit-equal after
+  each of 10 steps; 14 ``tiled_matmul`` launches inside the graph), and
+  qwen3-moe-30b-a3b FULL's peak served graphed (phase 19) beside eager.
 
 Then it times each kernel (fp32, bf16 and fp16), its plain version and the
 one PyTorch library call that computes the same function, beside the card's
@@ -496,6 +507,28 @@ def flash_phase():
               f"flash_attention disagrees with attention_ref on {label}")
         if label.startswith("slice") and dtype == bf16:
             slice_err = err
+    # rows that see no key (from t + window - 1 on): the kernel refuses them,
+    # and the op runs it on the rows before and gives the rest attention_ref's
+    # value, the mean of v over the t keys
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import first_keyless_row
+    for (b, h, kv, sq, t, d), dtype, causal, window in (
+            ((2, 8, 2, 300, 100, 64), bf16, True, 64), ((1, 4, 4, 200, 150, 128), f32, False, 32),
+            ((1, 8, 2, 64, 40, 16), f16, True, 8)):
+        q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        k = torch.randn(b, t, kv, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        v = torch.randn(b, t, kv, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = {bf16: BF16_TOL, f16: F16_TOL}.get(dtype, F32_TOL)
+        err, worst, ok = _close_rows(out, attention_ref(q, k, v, causal=causal, window=window),
+                                     tol)
+        first = first_keyless_row(sq, t, window)
+        print(f"  rows without a key, s={sq} t={t} window {window} d{d} {dtype} "
+              f"{'causal' if causal else 'non-causal'} (rows {first}..{sq - 1} see none): "
+              f"max_abs_err {err:.3e}, worst row {worst:.3e} (tol {tol})")
+        check(ok and first < sq, f"the op's rows without a key disagree with attention_ref "
+                                 f"at s={sq} t={t} window {window}")
     return slice_err
 
 
@@ -666,9 +699,14 @@ def timing_phase(launches, products_per_step, mm_err, wino_errs):
     # the same 14 products in fp16 (the kernel converts to fp32 on load)
     f16_ms = _total([_device_ms(lambda: tiled_matmul(a16, b16)) for a16, b16 in
                      ((a.half(), b.half()) for _, a, b in prods)])
+    f16_lib = _total([_device_ms(lambda: torch.matmul(a16, b16)) for a16, b16 in
+                      ((a.half(), b.half()) for _, a, b in prods)])
+    lib_ms = _total([r["library_device_ms"] for r in rows])
     f16_bound, f16_by = _bound(flops, nbytes / 2, PEAK_F32_FLOPS)
     print(f"  tiled_matmul fp16, the {len(prods)} products: {_fmt_ms(f16_ms)} on the device, "
           f"bound {f16_bound * 1e3:.2f} us ({f16_by})")
+    print(f"  torch.matmul, the {len(prods)} products: fp32 {_fmt_ms(lib_ms)}, fp16 "
+          f"{_fmt_ms(f16_lib)} on the device")
     mm_bound, mm_by = _bound(flops, nbytes, PEAK_F32_FLOPS)
     mm = {"name": "tiled_matmul", "route": "cuda",
           "source": "src/repro_torch/csrc/tiled_matmul.cu",
@@ -678,10 +716,11 @@ def timing_phase(launches, products_per_step, mm_err, wino_errs):
           "device_ms": _total([r["device_ms"] for r in rows]),
           "plain_ms": sum(r["plain_ms"] for r in rows),
           "bound_ms": mm_bound, "bound_by": mm_by,
-          "library_ms": sum(r["library_ms"] for r in rows),
+          "library_ms": sum(r["library_ms"] for r in rows), "library_device_ms": lib_ms,
           "unit": f"the {products_per_step} products of one LeNet-full "
                   "training step (batch 128)",
-          "fp16": {"device_ms": f16_ms, "bound_ms": f16_bound, "bound_by": f16_by}}
+          "fp16": {"device_ms": f16_ms, "bound_ms": f16_bound, "bound_by": f16_by,
+                   "library_device_ms": f16_lib}}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1205,7 +1244,7 @@ def serve_sim_phase(res):
     kv_shape = (cfg.num_layers, b, total, cfg.num_kv_heads, cfg.resolved_head_dim)
     cache = {"k": torch.empty(kv_shape, dtype=torch.bfloat16, device="cuda"),
              "v": torch.empty(kv_shape, dtype=torch.bfloat16, device="cuda"),
-             "pos": s}
+             "pos": torch.full((), s, dtype=torch.int32, device="cuda")}
     sim = Simulator(hw=H100)
     caps = {"prefill": sim.capture(lambda p, bt: prefill_step(model, p, bt),
                                    params, {"tokens": prompts}, name="prefill"),
@@ -2880,6 +2919,189 @@ def validate_phase(results):
             "utilization": doc["summary"]["utilization"]}
 
 
+#: phase 27: the LeNet-full steps run graphed and eager from one state
+JIT_LENET_STEPS = 10
+#: phase 27's fallback, should the graphed and eager logits differ: the
+#: llama3-8b smoke config in fp32, graphed against eager, relative
+JIT_F32_TOL = 1e-5
+
+
+def _first_logits(server, params, prompts, vocab):
+    """The prefill's last-token logits and the first decode step's, through
+    the server's compiled steps (copies: the graphs' outputs are overwritten
+    by their next replay)."""
+    lp, cache = server._prefill(params, {"tokens": prompts.clone()})
+    lp = lp.clone()
+    cache = server._decode_cache(cache, SERVE_NEW)
+    tok = lp[:, -1, :vocab].float().argmax(-1)
+    ld, _ = server._decode(params, cache, {"token": tok[:, None]})
+    return lp, ld.clone()
+
+
+def _smoke_fp32_graphed_vs_eager():
+    """The largest relative gap between the llama3-8b smoke config's
+    graphed and eager first logits, in fp32."""
+    import dataclasses
+
+    from repro_torch import config as C
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime.jit import disable_jit
+    from repro_torch.runtime.server import Server
+    cfg = dataclasses.replace(C.get(SERVE_ARCH).smoke, dtype="float32")
+    rc = C.RunConfig(model=cfg, shape=C.ShapeConfig("serve", 48, 4, "prefill"))
+    params = build_model(cfg).init(seed=serve.PARAM_SEED, device="cuda")
+    prompts = serve.make_prompts(cfg, 4, 32, "cuda")
+    server = Server(rc, params)
+    graphed = _first_logits(server, params, prompts, cfg.vocab_size)
+    with disable_jit():
+        eager = _first_logits(server, params, prompts, cfg.vocab_size)
+    return max(_rel(g, e) for g, e in zip(graphed, eager))
+
+
+def _decode_busy(server, params, prompts, label):
+    """A profile of four decode steps through the server's decode step
+    after one prefill: (device busy ms a step, host window ms a step)."""
+    lp, cache = server._prefill(params, {"tokens": prompts.clone()})
+    state = {"cache": server._decode_cache(cache, SERVE_NEW)}
+    tok = {"token": prompts[:, -1:].clone()}
+
+    def one_decode():
+        state["cache"] = server._decode(params, state["cache"], tok)[1]
+
+    window = {}
+    busy = _profile(label, one_decode, 4, top=4, window=window)
+    return busy, window.get("ms")
+
+
+def jit_phase(moe):
+    """Phase 27: the compiled steps (``StepBundle.jit``,
+    ``repro_torch.runtime.jit``: a CUDA graph a shape) against the same
+    steps under ``disable_jit``.  llama3-8b FULL serving: the same tokens,
+    and the prefill's last logits and the first decode step's bit for bit;
+    warm prefill ms, decode tok/s and the device's busy share of a decode
+    step in both modes; the flash launches inside the prefill's graph.  The
+    LeNet-full step: ``JIT_LENET_STEPS`` graphed steps against as many
+    eager ones from the same params and batches, bit for bit after each;
+    warm step ms and busy share in both modes; the ``tiled_matmul``
+    launches inside the graph.  qwen3-moe-30b-a3b FULL: phase 19 served it
+    graphed; its peak beside the eager 63.59 GB of PR 17."""
+    import contextlib
+    import gc
+    import itertools
+
+    import torch
+    from repro_torch import lenet_repro
+    from repro_torch.launch import serve
+    from repro_torch.runtime.jit import disable_jit
+    from repro_torch.runtime.server import ServeStats
+    phase(f"27. compiled steps (CUDA graphs) against eager: {SERVE_ARCH} FULL serving, the "
+          f"LeNet-full step, {MOE_ARCH} FULL's peak")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.run(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    max_new=SERVE_NEW, device="cuda")
+    server, params, prompts = res["server"], res["params"], res["prompts"]
+    cfg = res["model"].cfg
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    req = {"tokens": prompts}
+    graphed = server.generate(req, max_new_tokens=SERVE_NEW)
+    with disable_jit():
+        eager = server.generate(req, max_new_tokens=SERVE_NEW)
+    check(graphed.shape == eager.shape and (graphed == eager).all()
+          and (graphed == res["tokens"]).all(),
+          f"{SERVE_ARCH}: graphed tokens differ from eager ones")
+    gl = _first_logits(server, params, prompts, cfg.vocab_size)
+    with disable_jit():
+        el = _first_logits(server, params, prompts, cfg.vocab_size)
+    bit_equal = all(torch.equal(g, e) for g, e in zip(gl, el))
+    gaps = [_rel(g, e) for g, e in zip(gl, el)]
+    print(f"  {SERVE_ARCH} FULL: tokens graphed == eager ({graphed.shape}); the prefill's last "
+          f"logits and the first decode step's bit-equal: {bit_equal} (relative gaps "
+          f"{gaps[0]:.3e}, {gaps[1]:.3e})")
+    out = {"card": CARD, "tokens_equal": True, "logits_bit_equal": bit_equal,
+           "logit_gaps": gaps, "peak_gb": peak_gb}
+    if not bit_equal:
+        rel32 = _smoke_fp32_graphed_vs_eager()
+        print(f"  not bit-equal: the smoke config in fp32, graphed against eager, relative "
+              f"{rel32:.3e} (tol {JIT_F32_TOL})")
+        check(rel32 <= JIT_F32_TOL, f"graphed logits {rel32} off the eager ones in fp32")
+        out["smoke_fp32_gap"] = rel32
+    flash_in_graph = server._prefill.last.launches["flash_attention_fwd"]
+    check(flash_in_graph == cfg.num_layers,
+          f"the prefill graph holds {flash_in_graph} flash launches, expected {cfg.num_layers}")
+    for mode, ctx in (("graphed", contextlib.nullcontext), ("eager", disable_jit)):
+        with ctx():
+            for _ in range(2):                 # the second call is timed
+                server.stats = ServeStats()
+                server.generate(req, max_new_tokens=SERVE_NEW)
+            busy, window = _decode_busy(server, params, prompts, f"{mode} decode step")
+        share = f"{100 * busy / window:.1f}%" if busy and window else "not measured"
+        out[mode] = {"prefill_ms": server.stats.prefill_s * 1e3,
+                     "decode_tok_per_s": server.stats.decode_tok_per_s,
+                     "decode_busy_ms": busy, "decode_window_ms": window}
+        print(f"  {SERVE_ARCH} FULL {mode}, warm: prefill {out[mode]['prefill_ms']:.1f} ms, "
+              f"decode {out[mode]['decode_tok_per_s']:.1f} tok/s, a decode step's device "
+              f"busy {share}; {CARD}")
+    out["flash_in_prefill_graph"] = flash_in_graph
+    print(f"  flash launches inside the prefill's graph: {flash_in_graph}; peak memory "
+          f"{peak_gb:.2f} GB over the first call (weights drawn on the card included)")
+    del res, server, params, prompts, req
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = lenet_repro.new_model("cuda")
+    batches = list(itertools.islice(lenet_repro.device_batches(model, seed=2),
+                                    JIT_LENET_STEPS))
+    step = lenet_repro.compiled_step(model)
+    pg = {k: v.clone() for k, v in model.param_dict().items()}
+    pe = {k: v.clone() for k, v in model.param_dict().items()}
+    for i, (x, y) in enumerate(batches):
+        with disable_jit():
+            pe, loss_e, _ = step(pe, x, y)
+        pg, loss_g, _ = step(pg, x, y)
+        check(torch.equal(loss_g, loss_e) and all(torch.equal(pg[k], pe[k]) for k in pe),
+              f"the graphed LeNet step's params differ from the eager step's after step {i}")
+    mm_in_graph = step.last.launches["tiled_matmul"]
+    check(mm_in_graph == 3 * len(LENET_FWD) - 1,
+          f"the LeNet step's graph holds {mm_in_graph} tiled_matmul launches")
+    print(f"  LeNet-full: {JIT_LENET_STEPS} graphed steps against {JIT_LENET_STEPS} eager "
+          f"ones from the same params and batches: params and loss bit-equal after each; "
+          f"tiled_matmul launches inside the graph: {mm_in_graph}")
+    out["lenet"] = {"steps_bit_equal": JIT_LENET_STEPS, "tiled_matmul_in_graph": mm_in_graph}
+    for mode, ctx in (("graphed", contextlib.nullcontext), ("eager", disable_jit)):
+        state = {"p": pg, "i": 0}
+
+        def one_step():
+            x, y = batches[state["i"] % len(batches)]
+            state["i"] += 1
+            state["p"] = step(state["p"], x, y)[0]
+
+        with ctx():
+            ms = _time_ms(one_step, reps=10, warmup=3)
+            window = {}
+            busy = _profile(f"{mode} LeNet step", one_step, 5, top=4, window=window)
+        pg = state["p"]
+        share = (f"{100 * busy / window['ms']:.1f}%" if busy and window.get("ms")
+                 else "not measured")
+        out["lenet"][mode] = {"step_ms": ms, "busy_ms": busy, "window_ms": window.get("ms")}
+        print(f"  LeNet-full {mode} step, warm: {ms:.3f} ms (CUDA events, mean of 10), "
+              f"device busy {share}; {CARD}")
+    del step, model, batches, pg, pe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    moe_peak = max(moe["peak_gb"], moe["peak_first_call_gb"])
+    print(f"  {MOE_ARCH} FULL served graphed (phase 19): peak {moe['peak_first_call_gb']:.2f} GB "
+          f"over the first call (init, warm-up and capture included), {moe['peak_gb']:.2f} GB "
+          f"warm, beside 63.59 GB eager (PR 17); the card holds {card_gb:.2f} GB")
+    check(moe_peak < card_gb, f"{MOE_ARCH} graphed peaks at {moe_peak:.2f} GB")
+    out["moe_peak_gb"] = {"first_call": moe["peak_first_call_gb"], "warm": moe["peak_gb"]}
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: FAIL: {SRC / 'repro_torch'} not found; run from a "
@@ -2916,6 +3138,9 @@ def main() -> int:
         fleet = {"cluster": cluster_phase()}
         results = fleet["cluster"].pop("results")
         fleet.update(obs=obs_phase(results), validate=validate_phase(results))
+        graphs = jit_phase(families[MOE_ARCH])
+        kernels[0]["launches_in_graph"] = {
+            "one LeNet-full step": graphs["lenet"]["tiled_matmul_in_graph"]}
         flash = kernels[-1]
         flash["launches_by_path"] = {
             f"serve {SERVE_ARCH} FULL": serve_launches["flash_attention"],
@@ -2931,11 +3156,13 @@ def main() -> int:
                                   f"({MESH_STEPS} steps, batch {meshed['batch']}, local_map)"] = \
             meshed["flash_launches"]
         flash["attention_backward_ms_per_train_step"] = train["attn_bwd_ms_step"]
+        flash["launches_in_graph"] = {f"one {SERVE_ARCH} FULL prefill":
+                                      graphs["flash_in_prefill_graph"]}
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_analysis.json").write_text(json.dumps(
             {"correlation": correlation, "power": power, "gemma": gemma, "train": train,
              "families": families, "smoke": smokes, "mesh": meshed, "dryrun": dryrun,
-             "fleet": fleet},
+             "fleet": fleet, "graphs": graphs},
             indent=1, default=str))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

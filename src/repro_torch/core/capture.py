@@ -112,7 +112,7 @@ _map("logistic", _aten.silu.default,               # x * sigmoid(x)
      _aten.silu_backward.default)
 _map("compare", _aten.eq.Tensor, _aten.ge.Scalar, _aten.lt.Scalar, _aten.le.Tensor,
      _aten.lt.Tensor)
-_map("and", _aten.bitwise_and_.Tensor)
+_map("and", _aten.bitwise_and_.Tensor, _aten.bitwise_and.Tensor)
 _map("select", _aten.where.self, _aten.threshold_backward.default)
 _map("reduce", _aten.sum.default, _aten.sum.dim_IntList, _aten.mean.default,
      _aten.mean.dim,
@@ -120,7 +120,7 @@ _map("reduce", _aten.sum.default, _aten.sum.dim_IntList, _aten.mean.default,
 _map("log", _aten.log.default)
 _map("reduce-window", _aten.max_pool2d_with_indices.default)
 _map("select-and-scatter", _aten.max_pool2d_with_indices_backward.default)
-_map("gather", _aten.index.Tensor)
+_map("gather", _aten.index.Tensor, _aten.index_select.default)
 _map("scatter", _aten.index_put.default, _aten.unfold_backward.default)
 _map("pad", _aten.constant_pad_nd.default, _aten.slice_backward.default,
      _aten.select_backward.default)
@@ -487,6 +487,15 @@ def _ring_permute(em: _Emitter, node: torch.fx.Node) -> None:
                              [em.names[x]], f"source_target_pairs={{{pairs}}}")
 
 
+def _index_copy(em: _Emitter, node: torch.fx.Node) -> None:
+    """``cache.index_copy_(dim, row, new)``, the decode step's write of one
+    position, as the reference's ``dynamic-update-slice(cache, new, row)``:
+    the engine prices the update's bytes, not the cache's."""
+    cache, _, row, new = node.args[:4]
+    em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "dynamic-update-slice",
+                             [em.names[cache], em.names[new], em.names[row]])
+
+
 def _to_copy(em: _Emitter, node: torch.fx.Node) -> None:
     src = em.val(node.args[0])
     opcode = "convert" if src.dtype != em.val(node).dtype else "copy"
@@ -501,6 +510,8 @@ _SPECIAL: Dict[Any, Callable[[_Emitter, torch.fx.Node], None]] = {
     _aten.convolution.default: _convolution,
     _aten.convolution_backward.default: _convolution_backward,
     _aten._to_copy.default: _to_copy,
+    _aten.index_copy_.default: _index_copy,
+    _aten.index_copy.default: _index_copy,
 }
 
 

@@ -36,11 +36,11 @@ def check_rows_see_a_key(s: int, t: int, window: int) -> None:
     """Raise unless every query row has a visible key.
 
     ``attention_ref`` gives a row without one the mean of v (a softmax over
-    equal -1e30 scores); the kernel skips masked keys outright.  Such rows
-    arise only with t = 0, or with a window and s > t + window - 1, and no
-    model builds them, so they are refused on every device.  Causal or
-    not, row q sees a key iff q - window + 1 <= t - 1, so the last row
-    decides.
+    equal -1e30 scores); the kernel skips masked keys outright, so it
+    refuses such rows, and the op (``ops.py``) runs it on the rows before
+    them and writes them itself.  They arise only with t = 0, or with a
+    window and s > t + window - 1.  Causal or not, row q sees a key iff
+    q - window + 1 <= t - 1, so the last row decides.
     """
     if s and (t == 0 or (window > 0 and s - window > t - 1)):
         raise ValueError(f"flash_attention: query rows from "

@@ -8,25 +8,65 @@ does (one sequence and head group at a time): there is no backward kernel
 in either package.  On CUDA tensors the op
 launches the kernel; on CPU tensors it runs :func:`attention_ref`.  Unlike
 the reference wrapper it neither pads nor falls back: the kernel masks
-ragged sequence ends itself.
+ragged sequence ends itself.  Query rows that see no key (a window shorter
+than s - t + 1) get ``attention_ref``'s value on both devices: on the card
+the op writes them after the kernel, which refuses them.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
 from repro_torch.kernels.dispatch import use_kernel
-from repro_torch.kernels.flash_attention.kernel import (check_rows_see_a_key,
-                                                        flash_attention_fwd)
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+def first_keyless_row(s: int, t: int, window: int) -> int:
+    """The first query row that sees no key (``s`` if every row sees one).
+
+    Row q sees key j iff j <= t - 1 (and j <= q, causal) and, with a
+    window, q - j < window: causal or not, rows from t + window - 1 on see
+    none, and with t = 0 every row."""
+    if t == 0:
+        return 0
+    return min(s, t + window - 1) if window > 0 else s
+
+
+def with_keyless_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: int, softcap: float,
+                      kernel: Callable[..., torch.Tensor] = flash_attention_fwd
+                      ) -> torch.Tensor:
+    """The kernel's output, with the rows that see no key (which the kernel
+    refuses) given ``attention_ref``'s value: the mean of v over the t keys,
+    zeros at t = 0.  The rows are known from the shapes alone, so the kernel
+    runs on the rows before them and the rest is a slice write: the same
+    launches at every call, as a captured graph needs.  (``kernel``: a
+    stand-in with the launcher's signature, for a test on the CPU.)"""
+    s, t = q.shape[2], k.shape[2]
+    first = first_keyless_row(s, t, window)
+    if first == s:
+        return kernel(q, k, v, causal=causal, window=window, softcap=softcap)
+    out = torch.empty_like(q)
+    if first:
+        out[:, :, :first] = kernel(q[:, :, :first], k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    if t:
+        b, kvh, _, d = v.shape
+        mean = v.float().mean(dim=2, keepdim=True)[:, :, None]     # (b, kv, 1, 1, d)
+        out[:, :, first:] = mean.expand(b, kvh, q.shape[1] // kvh, 1, d).reshape(
+            b, q.shape[1], 1, d).to(out.dtype)
+    else:
+        out[:, :, first:] = 0
+    return out
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool, window: int, softcap: float) -> torch.Tensor:
     if use_kernel(q, k, v):
-        return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
-    check_rows_see_a_key(q.shape[2], k.shape[2], window)
+        return with_keyless_rows(q, k, v, causal=causal, window=window, softcap=softcap)
     # laid out like q, as the kernel and the fake lay it out, so that a
     # captured graph's views of it replay on the CPU too
     return torch.empty_like(q).copy_(

@@ -465,6 +465,9 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--save-hlo", action="store_true",
                     help="also write the traced HLO (of a step traced whole)")
+    ap.add_argument("--skip-lenet", action="store_true", default=True,
+                    help="taken, as the reference's CLI takes it; LeNet has no "
+                         "production-mesh cell, so --all never runs it")
     args = ap.parse_args(argv)
     if not args.all and not args.arch:
         ap.error("give --arch (and --shape), or --all")

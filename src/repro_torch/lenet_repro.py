@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.lenet_repro [--device cuda] [--hw h100] [--trace PATH]
 
 1. train LeNet (full config) with SGD until accuracy rises — the functional
-   check the paper's self-checking MNIST app provides;
+   check the paper's self-checking MNIST app provides — through the
+   compiled step (:func:`compiled_step`: a CUDA graph on the card);
 2. capture one training step (forward, gradient, update), simulate it, and
    correlate the simulator's time per op class against a reference (Fig.
    6/7; the paper: within 30% overall): on the card, the card's own kernel
@@ -44,6 +45,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.winograd.ref import conv3x3_ref
 from repro_torch.models.conv_algos import CONV_FNS
 from repro_torch.models.lenet import LeNet, sgd_step
+from repro_torch.runtime.jit import Jitted, jit
 
 #: the section V case study: x (64, 28, 28, 16) conv w (3, 3, 16, 32), SAME
 CASE_X = (64, 28, 28, 16)
@@ -84,15 +86,24 @@ def device_batches(model: LeNet, seed: int = SEED
                torch.from_numpy(b["labels"]).long().to(model.device))
 
 
+def compiled_step(model: LeNet) -> Jitted:
+    """The paper's training step, compiled with the params donated (the
+    counterpart of ``examples/lenet_paper_repro.py``'s ``@jax.jit`` step):
+    one CUDA graph on the card, :func:`sgd_step` itself on the CPU."""
+    return jit(lambda p, x, y: sgd_step(model, p, x, y, LR), donate=(0,))
+
+
 def train(model: LeNet, data: Iterator[Tuple[torch.Tensor, torch.Tensor]]
           ) -> Dict[str, Any]:
-    """``STEPS`` SGD steps on ``data``; returns the final params, loss and
-    accuracy."""
-    params = model.param_dict()
+    """``STEPS`` SGD steps on ``data`` through :func:`compiled_step`, from a
+    copy of the model's weights (the step writes its params over the ones
+    it is given); returns the final params, loss and accuracy."""
+    step = compiled_step(model)
+    params = {k: v.clone() for k, v in model.param_dict().items()}
     loss = acc = None
     for i in range(STEPS):
         images, labels = next(data)
-        params, loss, acc = sgd_step(model, params, images, labels, LR)
+        params, loss, acc = step(params, images, labels)
         if i % 15 == 0 or i == STEPS - 1:
             print(f"  step {i:3d} loss={float(loss):.4f} acc={float(acc) * 100:.0f}%")
     return {"params": params, "loss": float(loss), "accuracy": float(acc)}

@@ -43,8 +43,9 @@ def attn_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
-               window: int, k_valid_len: Optional[int] = None) -> torch.Tensor:
-    """(q, k) additive mask bias in fp32; ``window <= 0`` disables the window."""
+               window: int, k_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(q, k) additive mask bias in fp32; ``window <= 0`` disables the
+    window; keys from ``k_valid_len`` (a 0-d tensor) on are masked."""
     dist = q_pos[:, None] - k_pos[None, :]
     ok = torch.ones(dist.shape, dtype=torch.bool, device=dist.device)
     if causal:
@@ -211,30 +212,55 @@ def attention_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def attention_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
                      *, window: int = 0
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode against a (b, S, kv, hd) cache.
 
-    ``pos`` is the index of the new token (the same for the whole batch).
-    Its k and v are written into the cache in place (the reference's
-    ``dynamic_update_slice``, which XLA also applies in place); the same
-    tensors are returned.
+    ``pos`` is the index of the new token (the same for the whole batch), a
+    0-d int32 tensor on the device, as the reference's scalar array: the
+    step reads it only on the device, so a captured graph replays it at
+    every position.  The new k and v are written into the cache in place
+    (the reference's ``dynamic_update_slice``, which XLA also applies in
+    place); the same tensors are returned.
     """
-    b = x.shape[0]
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     S = cache_k.shape[1]
     q = _heads(dense(x, params["wq"], params.get("bq")), h, hd)
     k_new = _heads(dense(x, params["wk"], params.get("bk")), kvh, hd)
     v_new = _heads(dense(x, params["wv"], params.get("bv")), kvh, hd)
-    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    posv = pos.view(1)
     q = apply_rope(q, posv, cfg.rope_theta)
     k_new = apply_rope(k_new, posv, cfg.rope_theta)
-    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
+    row = posv.long()
+    _write_row(cache_k, k_new, row)
+    _write_row(cache_v, v_new, row)
     k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
     bias = _mask_bias(posv, k_pos, causal=True, window=window,
                       k_valid_len=pos + 1)
     out = sdpa(q, cache_k, cache_v, bias, cfg.logit_softcap)
     out = dense(_merge_heads(out), params["wo"])
     return out, (cache_k, cache_v)
+
+
+def _write_row(cache: torch.Tensor, new: torch.Tensor, row: torch.Tensor) -> None:
+    """``cache[:, row] = new`` in place: (b, S, kv, hd) and (b, 1, kv, hd),
+    ``row`` a one-element int64 tensor on the device.
+
+    A DTensor cache (a step on a mesh: DTensor has no rule for
+    ``index_copy_``) is written on each rank's shard under ``local_map``;
+    one whose S is split over ranks (a batch too small to split) by a
+    select over its rows, elementwise on each rank's shard."""
+    new = new.to(cache.dtype)
+    if not _is_dtensor(cache):
+        cache.index_copy_(1, row, new)
+        return
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(cache.placements)
+    if any(p.is_shard(1) for p in pl):
+        here = torch.arange(cache.shape[1], device=row.device) == row
+        cache.copy_(torch.where(here.view(1, -1, 1, 1), new, cache))
+        return
+    local_map(lambda c, v, i: c.index_copy_(1, i, v), out_placements=pl,
+              in_placements=(pl, pl, None), device_mesh=cache.device_mesh,
+              redistribute_inputs=True)(cache, new, row)

@@ -11,7 +11,7 @@ self-attention, the decoder's causal self-attention and the
 cross-attention (s queries against the encoder's t rows, in prefill and,
 recomputed from the encoder's output at every step as the reference does,
 in decode).  Decode self-attention against its cache is plain math.  The
-cache is {"k", "v": (L, b, S, kv, hd), "enc_out": (b, t, d), "pos": int}.
+cache is {"k", "v": (L, b, S, kv, hd), "enc_out": (b, t, d), "pos": 0-d int32}.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from repro_torch.distributed.sharding import lc
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamSpec, dense, lm_loss_from_hidden, rms_norm,
                                        rms_norm_spec, stack_specs, torch_dtype)
-from repro_torch.models.transformer import KV_AXES, LMBase, Params, _layer
+from repro_torch.models.transformer import (KV_AXES, LMBase, Params, _layer, position,
+                                            position_spec)
 
 
 class EncDecLM(LMBase):
@@ -139,7 +140,8 @@ class EncDecLM(LMBase):
                                                            positions)
             x = self._ffn(p_l, self._cross(p_l, x + h, enc_out, positions))
         x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-        return x @ params["head"], {"k": ks, "v": vs, "enc_out": enc_out, "pos": s}
+        return x @ params["head"], {"k": ks, "v": vs, "enc_out": enc_out,
+                                    "pos": position(s, x.device)}
 
     def decode_state_specs(self, shape: ShapeConfig):
         """The cache of a prefill of the text positions, as ``meta``
@@ -149,7 +151,7 @@ class EncDecLM(LMBase):
         b, S = shape.global_batch, self.text_len(shape)
         kv = self._kv_specs(cfg.num_layers, b, S)
         enc = torch.empty((b, cfg.frontend_seq, cfg.d_model), dtype=kv.dtype, device="meta")
-        cache = {"k": kv, "v": kv.clone(), "enc_out": enc, "pos": S - 1}
+        cache = {"k": kv, "v": kv.clone(), "enc_out": enc, "pos": position_spec()}
         cache_axes = {"k": KV_AXES, "v": KV_AXES, "enc_out": ("batch", "seq", "embed"),
                       "pos": ()}
         return (cache, cache_axes) + self._token_specs(shape)
@@ -162,7 +164,7 @@ class EncDecLM(LMBase):
         pos = cache["pos"]
         enc_out = cache["enc_out"]
         x = self._embed(params, batch["token"])
-        positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        positions = pos.view(1)
         for idx in range(cfg.num_layers):
             p_l = _layer(params["decoder"], idx)
             h = rms_norm(x, p_l["ln1"], cfg.norm_eps)

@@ -26,7 +26,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamSpec, lm_loss_from_hidden, rms_norm,
                                        rms_norm_spec, stack_specs, swiglu, torch_dtype)
-from repro_torch.models.transformer import KV_AXES, LMBase, Params, _layer
+from repro_torch.models.transformer import (KV_AXES, LMBase, Params, _layer, position,
+                                            position_spec)
 
 
 class HybridLM(LMBase):
@@ -127,7 +128,7 @@ class HybridLM(LMBase):
         """Full-sequence prefill; returns last-token logits + decode cache:
         {"groups": {"k", "v": (G, b, S, kv, hd), "mamba": {"state": (G, E,
         b, h, p, n) fp32, "conv": (G, E, b, w-1, c)}}, "tail": the same
-        mamba tree (R, ...) or None, "pos": S}."""
+        mamba tree (R, ...) or None, "pos": S as a 0-d int32 tensor}."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         b, s, _ = x.shape
@@ -156,7 +157,7 @@ class HybridLM(LMBase):
         x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
         cache = {"groups": {"k": ks, "v": vs,
                             "mamba": _stack(gcaches)},
-                 "tail": tail, "pos": s}
+                 "tail": tail, "pos": position(s, x.device)}
         return x @ params["head"], cache
 
     def decode_state_specs(self, shape: ShapeConfig):
@@ -177,7 +178,7 @@ class HybridLM(LMBase):
                                         device="meta")}
         kv = self._kv_specs(G, b, S)
         cache = {"groups": {"k": kv, "v": kv.clone(), "mamba": mamba((G, E))},
-                 "tail": None, "pos": S - 1}
+                 "tail": None, "pos": position_spec()}
         cache_axes = {"groups": {"k": KV_AXES, "v": KV_AXES, "mamba": {
                           "state": ("layers", "layers", "batch", "ssm_heads", None, "state"),
                           "conv": ("layers", "layers", "batch", None, "ffn")}},

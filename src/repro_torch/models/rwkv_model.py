@@ -4,7 +4,7 @@ The port of ``repro.models.rwkv_model.RWKVLM``, with its parameter tree
 (``layers`` stacked on a leading (L, ...) axis).  It runs no kernel: the
 WKV scan is plain PyTorch (:func:`~repro_torch.models.rwkv.wkv_chunked`),
 as the reference's is plain ``jnp``.  The decode cache is {"state": (L, b,
-h, hd, hd) fp32, "tm_prev", "cm_prev": (L, b, 1, d), "pos": int}.
+h, hd, hd) fp32, "tm_prev", "cm_prev": (L, b, 1, d), "pos": 0-d int32}.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from repro_torch.distributed.sharding import lc
 from repro_torch.models import rwkv
 from repro_torch.models.layers import (lm_loss_from_hidden, rms_norm, rms_norm_spec,
                                        stack_specs, torch_dtype)
-from repro_torch.models.transformer import LMBase, Params, _layer
+from repro_torch.models.transformer import LMBase, Params, _layer, position, position_spec
 
 
 class RWKVLM(LMBase):
@@ -99,7 +99,7 @@ class RWKVLM(LMBase):
             caches.append(c)
         x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
         cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
-        cache["pos"] = batch["tokens"].shape[1]
+        cache["pos"] = position(batch["tokens"].shape[1], x.device)
         return x @ params["head"], cache
 
     def decode_state_specs(self, shape: ShapeConfig):
@@ -112,7 +112,7 @@ class RWKVLM(LMBase):
         prev = torch.empty((L, b, 1, cfg.d_model), dtype=act, device="meta")
         cache = {"state": torch.empty((L, b, heads, hd, hd), dtype=torch.float32,
                                       device="meta"),
-                 "tm_prev": prev, "cm_prev": prev.clone(), "pos": shape.seq_len - 1}
+                 "tm_prev": prev, "cm_prev": prev.clone(), "pos": position_spec()}
         cache_axes = {"state": ("layers", "batch", "ssm_heads", None, None),
                       "tm_prev": ("layers", "batch", None, "embed"),
                       "cm_prev": ("layers", "batch", None, "embed"), "pos": ()}

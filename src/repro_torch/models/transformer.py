@@ -47,6 +47,19 @@ Params = Dict[str, Any]
 KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
 
 
+def position(n: int, device) -> torch.Tensor:
+    """A cache's decode position: a 0-d int32 tensor on the device, as the
+    reference's ``jnp.asarray(n, jnp.int32)`` (a fill, not a host copy, so
+    a captured prefill makes it too)."""
+    return torch.full((), n, dtype=torch.int32, device=device)
+
+
+def position_spec() -> torch.Tensor:
+    """The decode position of ``decode_state_specs``: a 0-d int32 ``meta``
+    tensor, as the reference's ``ShapeDtypeStruct((), jnp.int32)``."""
+    return torch.empty((), dtype=torch.int32, device="meta")
+
+
 def _tensor(a: Any) -> torch.Tensor:
     """A numpy array (bfloat16 included, which torch cannot read directly)
     as a CPU tensor that owns its memory."""
@@ -372,15 +385,17 @@ class DecoderLM(LMBase):
             x, _ = self._ffn(p_l, x + h, self.moe_capacity)
             x = lc(x, ("batch", "act_seq", "embed"))
         x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-        return x @ params["head"], {"k": lc(ks, KV_AXES), "v": lc(vs, KV_AXES), "pos": s}
+        return x @ params["head"], {"k": lc(ks, KV_AXES), "v": lc(vs, KV_AXES),
+                                    "pos": position(s, x.device)}
 
     def decode_state_specs(self, shape: ShapeConfig):
         """The cache a prefill of ``shape.seq_len`` leaves, as ``meta``
         tensors, with its logical axes, and the decode token's.  ``pos`` is
         the cache's last slot, so one step writes it and reads every slot
-        (the reference's one-token step against a full-length cache)."""
+        (the reference's one-token step against a full-length cache): a 0-d
+        int32 tensor, whose value no trace reads."""
         kv = self._kv_specs(self.cfg.num_layers, shape.global_batch, shape.seq_len)
-        cache = {"k": kv, "v": kv.clone(), "pos": shape.seq_len - 1}
+        cache = {"k": kv, "v": kv.clone(), "pos": position_spec()}
         cache_axes = {"k": KV_AXES, "v": KV_AXES, "pos": ()}
         return (cache, cache_axes) + self._token_specs(shape)
 

@@ -2,10 +2,12 @@
 
 The port of ``repro.runtime.steps``: the single source of truth for the
 train/prefill/decode step functions, their abstract inputs and their
-shardings, used by the trainer and :class:`~repro_torch.runtime.server.Server`
-(which call a step directly), the dry-run (``launch/dryrun.py``) and the
-capture frontend (:func:`repro_torch.core.capture.capture_bundle`), which
-traces a step whole.  PyTorch runs eagerly, so a step is a plain function.
+shardings, used by the trainer (which calls a step directly),
+:class:`~repro_torch.runtime.server.Server` (which compiles its steps with
+:meth:`StepBundle.jit`, CUDA graphs on the card), the dry-run
+(``launch/dryrun.py``) and the capture frontend
+(:func:`repro_torch.core.capture.capture_bundle`, :meth:`StepBundle.lower`),
+which traces a step whole.  A step is a plain function.
 
 On a mesh (a ``DeviceMesh`` over the default process group) the state and
 the batches are DTensors laid out by the logical rules
@@ -39,6 +41,7 @@ from repro_torch.distributed.sharding import (axes_to_pspec, distribute, even_pl
 from repro_torch.models import build_model
 from repro_torch.optim import (TrainState, abstract_state, adamw_update, init_state,
                                state_axes, tree_leaves, tree_map, warmup_cosine)
+from repro_torch.runtime.jit import GraphPool, Jitted, jit
 
 
 @dataclass
@@ -46,12 +49,28 @@ class StepBundle:
     """A step function, its abstract inputs (``meta`` tensors: global
     shapes and dtypes, no storage) and, on a mesh, the layout of its inputs
     and outputs: trees of ``(mesh, placements)`` pairs (the reference's
-    ``NamedSharding`` trees), the metrics replicated."""
+    ``NamedSharding`` trees), the metrics replicated; and the arguments
+    the step's caller gives up (the reference's ``donate_argnums``)."""
     fn: Callable
     abstract_inputs: Tuple[Any, ...]
     in_shardings: Optional[Tuple[Any, ...]] = None
     out_shardings: Optional[Any] = None
     mesh: Any = None
+    donate_argnums: Tuple[int, ...] = ()
+
+    def lower(self, name: str = "step", device: Any = None):
+        """The step traced whole from its abstract inputs (fake tensors on
+        ``device``, default cuda): the port's counterpart of lowering, a
+        :class:`~repro_torch.core.capture.Captured` program."""
+        from repro_torch.core.capture import capture_bundle
+        return capture_bundle(self, name=name, device=device)
+
+    def jit(self, pool: Optional[GraphPool] = None) -> Jitted:
+        """The step compiled (:func:`repro_torch.runtime.jit.jit`): a CUDA
+        graph per input signature on the card, the donated arguments
+        written over in place; ``pool`` shares a graph pool with other
+        compiled steps."""
+        return jit(self.fn, self.donate_argnums, pool)
 
 
 def run_rules(run_cfg: RunConfig, model):
@@ -89,9 +108,10 @@ def _ambient(fn: Callable, rules, mesh) -> Callable:
 
 def _layout(shapes: Any, axes: Any, rules, mesh) -> Any:
     """The ``(mesh, placements)`` of every tensor of ``shapes`` (a tree of
-    meta tensors, or ints, which stay as they are) by its logical axes."""
+    meta tensors) by its logical axes.  A 0-d tensor (the decode position)
+    has none: it stays a plain tensor, the same on every rank."""
     def one(t, a):
-        if not isinstance(t, torch.Tensor):
+        if not isinstance(t, torch.Tensor) or t.dim() == 0:
             return None
         return mesh, even_placements(t.shape, axes_to_pspec(a, rules), mesh)
     return zip_axes(one, shapes, axes)
@@ -223,7 +243,7 @@ def train_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
         in_sh = (state_sh, _layout(batch_specs, batch_axes, rules, mesh))
         out_sh = (state_sh, None)
     return StepBundle(_ambient(train_step, rules, mesh), (abstract, batch_specs),
-                      in_sh, out_sh, mesh)
+                      in_sh, out_sh, mesh, donate_argnums=(0,))
 
 
 def init_train_state(run_cfg: RunConfig, seed: int = 0,
@@ -292,8 +312,9 @@ def prefill_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
 
 def decode_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
     """One-token ``fn(params, cache, batch) -> (logits, cache)`` against a
-    full-length cache (the decode_* shapes); the cache is updated in place
-    (the reference donates it)."""
+    full-length cache (the decode_* shapes); the cache is donated, as the
+    reference's: its K/V are updated in place, and a compiled step writes
+    the rest of the new cache (the position, recurrent states) over it."""
     model = build_model(run_cfg.model, run_cfg.sharding)
     rules = run_rules(run_cfg, model)
     fn = _ambient(functools.partial(decode_step, model), rules, mesh)
@@ -306,7 +327,8 @@ def decode_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
                  _layout(tok_specs, tok_axes, rules, mesh))
         logits = _logits_spec(run_cfg, params_specs)
         out_sh = (_layout(logits, ("batch", None, "vocab"), rules, mesh), cache_sh)
-    return StepBundle(fn, (params_specs, cache_specs, tok_specs), in_sh, out_sh, mesh)
+    return StepBundle(fn, (params_specs, cache_specs, tok_specs), in_sh, out_sh, mesh,
+                      donate_argnums=(1,))
 
 
 def bundle_for(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:

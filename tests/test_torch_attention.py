@@ -20,6 +20,8 @@ from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
                                                  flash_attention_fwd)
+from repro_torch.kernels.flash_attention.kernel import check_rows_see_a_key
+from repro_torch.kernels.flash_attention.ops import first_keyless_row, with_keyless_rows
 
 SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
           (1, 4, 4, 384, 64)]
@@ -99,15 +101,35 @@ def test_flash_grad_matches_jax_grad_of_ref():
         np.testing.assert_allclose(_np(mine), _np(want), rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("s,t,window", [(4, 0, 0), (200, 100, 64)])
-def test_rows_without_a_key_are_refused(s, t, window):
-    """attention_ref gives such rows the mean of v; the kernel has none, so
-    the op refuses them on every device."""
-    (q, k, v), _ = _qkv(1, 2, 2, s, 32, t=t)
+@pytest.mark.parametrize("s,t,window,causal", [(4, 0, 0, True), (200, 100, 64, True),
+                                               (200, 100, 64, False), (40, 8, 4, True)])
+def test_rows_without_a_key_are_refused(s, t, window, causal):
+    """The kernel refuses query rows that see no key (it has nothing to
+    give them); the op gives them attention_ref's value, the mean of v
+    (zeros at t = 0), as the reference does: on the CPU through
+    attention_ref, on the card by a write after the kernel
+    (``with_keyless_rows``, run here with a stand-in for the kernel that
+    refuses such rows as it does; on the card by chip_smoke.py phase 5)."""
     with pytest.raises(ValueError, match="see no key"):
-        flash_attention(q, k, v, causal=True, window=window)
-    flash_attention(q[:, :, :t + window - 1] if t else q[:, :, :0], k, v,
-                    causal=True, window=window)
+        check_rows_see_a_key(s, t, window)
+    first = first_keyless_row(s, t, window)
+    check_rows_see_a_key(first, t, window)
+    assert first < s
+    (q, k, v), (jq, jk, jv) = _qkv(1, 4, 2, s, 32, t=t)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    want = jax_attention_ref(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(_np(out), _np(want), rtol=2e-3, atol=2e-3)
+
+    def kernel(q, k, v, **mask):
+        check_rows_see_a_key(q.shape[2], k.shape[2], mask["window"])
+        return attention_ref(q, k, v, **mask)
+
+    mine = with_keyless_rows(q, k, v, causal=causal, window=window, softcap=0.0,
+                             kernel=kernel)
+    np.testing.assert_allclose(_np(mine), _np(want), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(_np(out[:, :, first:]), np.broadcast_to(
+        _np(v).mean(axis=2, keepdims=True).repeat(2, axis=1) if t else 0.0,
+        out[:, :, first:].shape), rtol=1e-5, atol=1e-6)
 
 
 def test_flash_keeps_the_callers_layout():

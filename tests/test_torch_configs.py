@@ -91,7 +91,8 @@ def test_prefill_logits_and_cache_match_reference(pair, s):
     _close(got, want)
     for key in ("k", "v"):
         _close(cache[key], want_cache[key])
-    assert cache["pos"] == int(want_cache["pos"]) == s
+    assert cache["pos"].dtype == torch.int32 and cache["pos"].dim() == 0
+    assert int(cache["pos"]) == int(want_cache["pos"]) == s
 
 
 @pytest.mark.parametrize("s", [16, 40])
@@ -106,7 +107,7 @@ def test_decode_step_matches_reference_and_forward(pair, s):
     _, cache = prefill_step(model, params, {"tokens": tt[:, :s - 1]})
     cache = Server._grow_cache(cache, 4)
     got, new_cache = decode_step(model, params, cache, {"token": tt[:, s - 1:]})
-    assert new_cache["pos"] == s
+    assert int(new_cache["pos"]) == s
     _close(got, want)
     full, _ = model.forward(params, tt)
     _close(got[:, 0], full[:, -1].numpy())

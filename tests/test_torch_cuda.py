@@ -521,3 +521,65 @@ def test_pipeline_places_batches_on_the_card(cuda):
     data.close()
     assert [b["tokens"].device.type for b in got] == ["cuda"] * 3
     assert [int(b["tokens"][1, 4]) for b in got] == [0, 1, 2]
+
+
+@pytest.mark.cuda
+def test_jit_replays_the_eager_lenet_step_bit_for_bit(cuda):
+    """The paper's step compiled (a CUDA graph: 14 ``tiled_matmul``
+    launches, autograd, the params donated) against the same step eager,
+    from one set of params and batches: equal bit for bit after each step.
+    A batch of another size captures a second graph; each graphed call
+    counts the graph's launches, and a capture its warm-up's."""
+    from repro_torch import config as C
+    from repro_torch.models.lenet import LeNet, sgd_step
+    from repro_torch.runtime.jit import WARMUP_CALLS, disable_jit, jit
+    cfg = C.get("lenet").full
+    model = LeNet(cfg, conv_algo="gemm", device=cuda, seed=0)
+    step = jit(lambda p, x, y: sgd_step(model, p, x, y, 0.05), donate=(0,))
+
+    def batch(n, seed):
+        x = _randn(seed, n, cfg.image_hw, cfg.image_hw, cfg.image_c, device=cuda)
+        y = torch.from_numpy(np.random.default_rng(seed).integers(0, 10, n)).to(cuda)
+        return x, y
+
+    graphed = {k: v.clone() for k, v in model.param_dict().items()}
+    eager = {k: v.clone() for k, v in model.param_dict().items()}
+    before = tiled_matmul.launches
+    for i in range(3):
+        x, y = batch(32, i)
+        with disable_jit():
+            eager, loss_e, _ = step(eager, x, y)
+        graphed, loss_g, _ = step(graphed, x, y)
+        assert torch.equal(loss_g, loss_e)
+        for k in eager:
+            assert torch.equal(graphed[k], eager[k]), (i, k)
+    assert len(step.graphs) == 1 and step.last.launches["tiled_matmul"] == 14
+    assert tiled_matmul.launches - before == 3 * 14 + (WARMUP_CALLS + 3) * 14
+    first = step.last
+    x, y = batch(16, 7)
+    graphed, _, _ = step(graphed, x, y)
+    assert len(step.graphs) == 2 and step.last is not first
+
+
+@pytest.mark.cuda
+def test_server_serves_graphed_as_eager(cuda):
+    """The llama3-8b smoke config served through the compiled steps and
+    under ``disable_jit``: the same tokens, and one prefill and one decode
+    graph (flash launched once a layer in the prefill's)."""
+    from repro_torch import config as C
+    from repro_torch.models import build_model
+    from repro_torch.runtime.jit import disable_jit
+    from repro_torch.runtime.server import Server
+    cfg = C.get("llama3-8b").smoke
+    rc = C.RunConfig(model=cfg, shape=C.ShapeConfig("p", 32, 2, "prefill"))
+    params = build_model(cfg).init(seed=0, device=cuda)
+    batch = {"tokens": torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (2, 32))).long().to(cuda)}
+    server = Server(rc, params)
+    graphed = [server.generate(batch, max_new_tokens=6) for _ in range(2)]
+    with disable_jit():
+        eager = Server(rc, params).generate(batch, max_new_tokens=6)
+    np.testing.assert_array_equal(graphed[0], eager)
+    np.testing.assert_array_equal(graphed[1], eager)
+    assert len(server._prefill.graphs) == len(server._decode.graphs) == 1
+    assert server._prefill.last.launches["flash_attention_fwd"] == cfg.num_layers

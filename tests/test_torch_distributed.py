@@ -285,15 +285,15 @@ def test_sharded_prefill_and_decode_match_the_unsharded_steps(tmp_path, arch):
     _check_serve(tmp_path, arch)
 
 
-def _check_serve(tmp_path, arch, mesh=(2, 2)):
+def _check_serve(tmp_path, arch, mesh=(2, 2), batch=4):
     cfg = dataclasses.replace(C.get(arch).smoke, dtype="float32")
     from repro_torch.models import build_model
     rng = np.random.default_rng(5)
     w = _np_tree(build_model(cfg).param_specs(), rng)
-    tokens = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int64)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, 16)).astype(np.int64)
     extra = {}
     if cfg.frontend != "none":
-        extra["frontend_emb"] = rng.standard_normal((4, cfg.frontend_seq, cfg.d_model)
+        extra["frontend_emb"] = rng.standard_normal((batch, cfg.frontend_seq, cfg.d_model)
                                                     ).astype(np.float32)
     got = _run_case("serve", tmp_path, arch=np.array(arch), tokens=tokens, mesh=np.array(mesh),
                     **extra, **_flat(w, "params"))
@@ -306,6 +306,24 @@ def _check_serve(tmp_path, arch, mesh=(2, 2)):
                                        err_msg=path)
         else:
             assert leaf == want[path], path
+
+
+def test_a_batch_the_mesh_cannot_split_serves_as_without_a_mesh(tmp_path):
+    """Batch 1 on (2, 2): the rules keep the batch whole (and put
+    ``kv_seq`` on ``data``, as the reference's do for long_500k); prefill
+    and three decode steps, the position on the device, against the same
+    steps without a mesh."""
+    _check_serve(tmp_path, ARCH, batch=1)
+
+
+def test_the_decode_write_lands_on_the_rank_that_holds_the_position(tmp_path):
+    """The decode step's write of one position into a DTensor K/V cache
+    (``attention._write_row``) on the (2, 2) mesh, the cache split over
+    positions (long_500k's ``kv_seq`` on ``data``), over batch rows, over
+    heads, or whole, at the first, a middle and the last position: the
+    whole cache equals the plain write's."""
+    got = _run_case("cache_write", tmp_path)
+    assert got["checked"] == 12 and got["bad"] == []
 
 
 def test_tree_nbytes_of_a_sharded_state_counts_each_leaf_whole(tmp_path):

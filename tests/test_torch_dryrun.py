@@ -25,6 +25,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 from repro import config as RC
 from repro.distributed.sharding import axes_to_pspec, logical_rules
@@ -189,3 +190,20 @@ def test_dryrun_extends_a_train_step_over_layers_and_microbatches():
     # a peak, not a sum: each microbatch keeps a few scalars to the end, and
     # the small tensors' order differs a little between depths
     assert abs(fit["memory"]["temp_bytes"] / whole["memory"]["temp_bytes"] - 1) <= 1e-3
+
+
+def test_cli_takes_the_references_skip_lenet_flag(capsys):
+    """``--skip-lenet`` (a no-op ``store_true`` in the reference's CLI) is
+    taken: the reference's command lines run unchanged.  Without a cell the
+    parser stops at its own complaint, before any process group starts."""
+    import pytest
+
+    from repro_torch.launch import dryrun
+    with pytest.raises(SystemExit) as exc:
+        dryrun.main(["--skip-lenet"])
+    err = capsys.readouterr().err
+    assert exc.value.code == 2
+    assert "give --arch" in err and "unrecognized" not in err
+    with pytest.raises(SystemExit):
+        dryrun.main(["--skip-lenet", "--no-such-flag"])
+    assert "unrecognized arguments: --no-such-flag" in capsys.readouterr().err

@@ -122,7 +122,8 @@ def test_prefill_logits_and_cache_match_reference(pair, s):
     _close(got, want, dtype)
     for key in ("k", "v"):
         _close(cache[key], want_cache[key], dtype)
-    assert cache["pos"] == int(want_cache["pos"]) == s
+    assert cache["pos"].dtype == torch.int32 and cache["pos"].dim() == 0
+    assert int(cache["pos"]) == int(want_cache["pos"]) == s
 
 
 @pytest.mark.parametrize("s", [16, 200])
@@ -139,7 +140,7 @@ def test_decode_step_matches_reference_and_forward(pair, s):
     _, cache = prefill_step(model, params, {"tokens": tt[:, :s - 1]})
     cache = Server._grow_cache(cache, 4)
     got, new_cache = decode_step(model, params, cache, {"token": tt[:, s - 1:]})
-    assert new_cache["pos"] == s and new_cache["k"] is cache["k"]
+    assert int(new_cache["pos"]) == s and new_cache["k"] is cache["k"]
     _close(got, want, dtype)
     full, _ = model.forward(params, tt)
     _close(got[:, 0], full[:, -1].numpy() if dtype == "float32"
@@ -219,7 +220,8 @@ def captures():
     tokens = torch.zeros(B, s, dtype=torch.long)
     kv_shape = (cfg.num_layers, B, s, cfg.num_kv_heads, cfg.resolved_head_dim)
     cache = {"k": torch.zeros(kv_shape, dtype=torch.bfloat16),
-             "v": torch.zeros(kv_shape, dtype=torch.bfloat16), "pos": s - 1}
+             "v": torch.zeros(kv_shape, dtype=torch.bfloat16),
+             "pos": torch.tensor(s - 1, dtype=torch.int32)}
     sim = Simulator(hw=H100)
     port = {"prefill": sim.capture(lambda p, bt: prefill_step(model, p, bt),
                                    params, {"tokens": tokens}, name="prefill"),

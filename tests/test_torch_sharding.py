@@ -110,8 +110,8 @@ def test_logical_overrides_match_reference(arch):
 @pytest.mark.parametrize("arch", ["llama3-8b", "zamba2-7b", "rwkv6-1.6b",
                                   "seamless-m4t-large-v2"])
 def test_decode_state_specs_match_reference(arch):
-    """The cache's shapes, dtypes and logical axes, and the token's; the
-    reference's traced ``pos`` is the port's int, the cache's last slot."""
+    """The cache's shapes, dtypes and logical axes, and the token's; ``pos``
+    is a 0-d int32 spec in both packages."""
     shape = C.ShapeConfig("d", 64, 4, "decode")
     cache, axes, tok, tok_axes = build_model(C.get(arch).smoke).decode_state_specs(shape)
     rcache, raxes, rtok, rtok_axes = ref_build_model(RC.get(arch).smoke).decode_state_specs(
@@ -122,8 +122,8 @@ def test_decode_state_specs_match_reference(arch):
     assert set(flat) == set(rflat)
     for k, v in flat.items():
         if k.endswith("pos"):
-            assert isinstance(v, int) and 0 <= v < 64
-        elif v is not None:
+            assert v.device.type == "meta"
+        if v is not None:
             assert tuple(v.shape) == rflat[k].shape, k
             assert str(v.dtype).split(".")[-1] == str(rflat[k].dtype), k
     assert tuple(tok["token"].shape) == rtok["token"].shape

@@ -362,6 +362,33 @@ def case_serve(rank, inp):
             "cache": _full(cache), "cache_want": pcache}
 
 
+def case_cache_write(rank, inp):
+    """``_write_row`` on DTensor caches of every layout against the plain
+    write."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.attention import _write_row
+    mesh = _mesh((2, 2), ("data", "model"))
+    gen = torch.Generator().manual_seed(0)
+    full = torch.randn(2, 8, 4, 3, generator=gen)
+    new = torch.randn(2, 1, 4, 3, generator=gen)
+    bad, checked = [], 0
+    for pl in ([Shard(1), Replicate()], [Shard(0), Shard(2)], [Replicate(), Shard(2)],
+               [Replicate(), Replicate()]):
+        for row in (0, 5, 7):
+            cache = distribute_tensor(full.clone(), mesh, pl)
+            with implicit_replication():
+                _write_row(cache, distribute_tensor(new, mesh, [Replicate(), Replicate()]),
+                           torch.tensor([row]))
+            want = full.clone()
+            want[:, row] = new[:, 0]
+            checked += 1
+            if not torch.equal(cache.full_tensor(), want):
+                bad.append((str(pl), row))
+    return {"checked": checked, "bad": bad}
+
+
 def case_trainer(rank, inp):
     """The trainer on the (2, 2) mesh; a failure at step 3 loses 2 ranks:
     ranks 0 and 1 go on on a (1, 2) mesh from the resharded checkpoint,
