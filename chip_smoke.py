@@ -27,12 +27,13 @@ kernel's launch count set to 0 just before and read just after:
   (48 layers, head_dim 256, window 1024 on 5 of every 6 layers) serve too;
 * training — qwen1.5-4b at its full config (40 layers, bf16 params with
   fp32 master, m and v on the card) at train_4k's sequence length, batch
-  6 (the largest that fits), 3 AdamW steps through ``train_bundle``,
+  6 (the largest that fits), 4 AdamW steps through ``train_bundle``,
   ``init_train_state`` and ``DataPipeline`` (phase 15); the step captured
   from abstract inputs and simulated (16); 2 of its layers in fp32 through
-  the kernel against attention_ref in its place (17); and the ``Trainer``
-  with an injected failure, restoring from its checkpoint on the card, and
-  ``python -m repro_torch.launch.train --smoke`` (18);
+  the kernel against attention_ref in its place (17); and the ``Trainer``,
+  its step compiled, with an injected failure, restoring from its
+  checkpoint on the card, beside the same run eager, and ``python -m
+  repro_torch.launch.train --smoke`` (18);
 * the other model families — ``launch.serve.run`` on the same requests:
   qwen3-moe-30b-a3b FULL (61 GB of bf16 weights, 128 experts; phase 19)
   with the flash kernel held to attention_ref at GQA group 8, ``moe_ffn``
@@ -46,9 +47,10 @@ kernel's launch count set to 0 just before and read just after:
 * the distributed layer — a one-rank NCCL process group and a (1, 1)
   data x model mesh (``build_mesh``): one llama3-8b smoke train step through
   the sharded ``train_bundle`` against the plain step from the same state;
-  qwen1.5-4b FULL trained by ``Trainer(rc, use_mesh=True)`` at seq 4096 and
-  the largest batch that fits, the flash kernel reached through
-  ``local_map`` on each rank's heads; ``quantize_int8``,
+  qwen1.5-4b FULL trained by ``Trainer(rc, use_mesh=True)``, its step
+  captured with the mesh, at seq 4096 and the largest batch that fits, the
+  flash kernel reached through ``local_map`` on each rank's heads;
+  ``quantize_int8``,
   ``compressed_psum_mean`` over the NCCL group and ``pipeline_apply`` at one
   stage (22); then ``python -m repro_torch.launch.dryrun`` as subprocesses on
   the host for llama3-8b decode_32k and dbrx-132b train_4k (depth and
@@ -72,6 +74,14 @@ kernel's launch count set to 0 just before and read just after:
   LeNet-full step graphed and eager from one state (params bit-equal after
   each of 10 steps; 14 ``tiled_matmul`` launches inside the graph), and
   qwen3-moe-30b-a3b FULL's peak served graphed (phase 19) beside eager.
+* the trainer's compiled step (28) — every trainable family's smoke step
+  (qwen1.5-4b, qwen3-moe-30b-a3b, internvl2-2b, zamba2-7b, rwkv6-1.6b,
+  seamless-m4t-large-v2, LeNet; fp32, and the dense one at two
+  microbatches) through ``train_bundle(rc).jit()`` against the same steps
+  under ``disable_jit``, the state and metrics bit for bit with the rate
+  moving; qwen1.5-4b FULL graphed through the ``DataPipeline`` against
+  phase 15's eager steps (loss, grad norm and rate a step), its memory, warm
+  step and busy share, and the 80 flash launches inside its graph.
 
 Then it times each kernel (fp32, bf16 and fp16), its plain version and the
 one PyTorch library call that computes the same function, beside the card's
@@ -118,10 +128,11 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 16
 # of every 6 layers
 GEMMA_ARCH = "gemma3-12b"
 # the training path: qwen1.5-4b FULL at train_4k's sequence length, bf16
-# params with fp32 state, 3 AdamW steps at batch 6, cut from train_4k's 256:
+# params with fp32 state, 4 AdamW steps at batch 6, cut from train_4k's 256:
 # the largest that fits on an 80 GB H100 (66.65 GB at batch 1, 2.43 GB a
-# sequence; batch 6 peaks at 79.10 GB, see PERF.md)
-TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_BATCH = "qwen1.5-4b", 4096, 3, 6
+# sequence; batch 6 peaks at 79.10 GB, see PERF.md); phase 28 takes as many
+# graphed steps (an eager one, a capture, a timed and a profiled replay)
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_BATCH = "qwen1.5-4b", 4096, 4, 6
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
@@ -1059,7 +1070,10 @@ def serve_phase():
     check(0 <= tokens.min() and tokens.max() < cfg.vocab_size,
           f"generated tokens outside [0, {cfg.vocab_size})")
 
-    # warm repeat of the same requests: serving time and peak memory alone
+    # the second call captures the prefill (a compiled step's first call runs
+    # eagerly), so the warm repeat after it replays both steps: serving time
+    # and peak memory alone
+    server.generate({"tokens": res["prompts"]}, max_new_tokens=SERVE_NEW)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     server.stats = ServeStats()
@@ -1184,6 +1198,7 @@ def _serve_gemma():
     cfg, tokens = model.cfg, res["tokens"]
     weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     first = server.stats
+    server.generate({"tokens": res["prompts"]}, max_new_tokens=SERVE_NEW)   # the capture
     server.stats = ServeStats()
     server.generate({"tokens": res["prompts"]}, max_new_tokens=SERVE_NEW)
     warm = server.stats
@@ -1603,8 +1618,8 @@ def train_phase():
     ``init_train_state``, ``train_bundle`` and ``DataPipeline`` as the
     trainer drives them, without its checkpoints (the forced final save
     would write 63 GB), at ``TRAIN_BATCH``; the step's peak must stay
-    under the card's memory.  Three steps: the first cold, the second timed
-    warm, the third under ``torch.profiler``; then, with the state freed,
+    under the card's memory.  Four steps: the first cold, the second timed
+    warm, the last under ``torch.profiler``; then, with the state freed,
     the bf16 kernel held to ``attention_ref`` at the step's attention shape,
     and attention's backward alone at that shape."""
     import gc
@@ -1737,7 +1752,8 @@ def train_phase():
     return {"batch": batch, "peak_gb": peak_gb, "warm_ms": warm_s * 1e3, "tok_s": tok_s,
             "busy_ms": busy_ms, "profiled_ms": times[-1] * 1e3, "launches": launches,
             "attn_bwd_ms_step": bwd_step_ms, "first_loss": metrics[0]["loss"],
-            "state_gb": state_gb, "flash_max_abs_err": flash_err, "train_cfg": train_cfg}
+            "state_gb": state_gb, "flash_max_abs_err": flash_err, "train_cfg": train_cfg,
+            "metrics": metrics}
 
 
 def _train_dot_flops(cfg, b, s):
@@ -1894,40 +1910,92 @@ def train_witness_phase():
 
 
 def trainer_phase():
-    """The trainer on the card: the qwen1.5-4b smoke config, 6 steps with a
-    checkpoint every 2 and one injected NodeFailure at step 3, so checkpoint,
-    restore and continue all run on cuda; then ``python -m
+    """The trainer on the card, its step compiled (``bundle.jit()``: the
+    first step of a build eager, the second captured, the rest replayed):
+    the qwen1.5-4b smoke config, 6 steps with the prefetching pipeline, a
+    checkpoint every 2 and one injected NodeFailure at step 3, so
+    checkpoint, restore and continue all run on cuda; the memory allocated
+    after the restart's restore within half the state of what it was before
+    the failure (the old graph, which keeps the old state, is gone); the
+    same run under ``disable_jit``: the same losses.  Then ``python -m
     repro_torch.launch.train --smoke`` as a user runs it."""
     import os
     import shutil
+    import statistics
     import tempfile
 
     import torch
     from repro_torch import config as C
     from repro_torch.checkpoint.store import list_steps
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.optim import tree_leaves
     from repro_torch.runtime.failure import FailurePlan
+    from repro_torch.runtime.jit import disable_jit
     from repro_torch.runtime.trainer import Trainer
-    phase(f"18. the trainer on the card: {TRAIN_ARCH} smoke, a failure, restore, continue")
+    phase(f"18. the trainer on the card, graphed: {TRAIN_ARCH} smoke, a failure, restore, "
+          f"continue; beside eager")
+    mem = {"restored": []}
+
+    class Plan(FailurePlan):
+        def check(self, step):
+            if step in self.failures and step not in self._fired:
+                torch.cuda.synchronize()
+                mem["before_failure"] = torch.cuda.memory_allocated()
+            super().check(step)
+
+    class Watched(Trainer):
+        def _init_or_restore(self, mesh=None, bundle=None):
+            state, start = super()._init_or_restore(mesh, bundle)
+            torch.cuda.synchronize()
+            mem["restored"].append(torch.cuda.memory_allocated())
+            mem["state_bytes"] = sum(t.numel() * t.element_size() for part in state[1:]
+                                     for t in tree_leaves(part))
+            return state, start
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {}
     try:
-        rc = C.RunConfig(model=C.get(TRAIN_ARCH).smoke,
-                         shape=C.ShapeConfig("smoke_train", 64, 4, "train"), mesh=C.SMOKE_MESH,
-                         train=C.TrainConfig(total_steps=6, warmup_steps=2, checkpoint_every=2,
-                                             keep_checkpoints=2, learning_rate=1e-3,
-                                             checkpoint_dir=os.path.join(tmp, "trainer")))
-        flash_attention_fwd.launches = 0
-        report = Trainer(rc, use_mesh=False, failure_plan=FailurePlan(failures={3: 1}),
-                         device="cuda").train()
-        steps = list_steps(rc.train.checkpoint_dir)
-        print(f"  Trainer: {report.steps_done} steps, {report.restarts} restart, "
-              f"{report.checkpoints} checkpoints (kept: {steps}), losses "
-              f"{[round(x, 4) for x in report.losses]}, flash launches "
-              f"{flash_attention_fwd.launches}")
-        check(report.restarts == 1 and report.steps_done >= 6 and steps[-1] == 6,
-              f"the trainer did not restore and finish: {report}")
-        check(all(math.isfinite(x) for x in report.losses), "a trainer loss is not finite")
-        check(flash_attention_fwd.launches > 0, "the trainer never launched flash")
+        for mode in ("graphed", "eager"):
+            rc = C.RunConfig(model=C.get(TRAIN_ARCH).smoke,
+                             shape=C.ShapeConfig("smoke_train", 64, 4, "train"),
+                             mesh=C.SMOKE_MESH,
+                             train=C.TrainConfig(total_steps=6, warmup_steps=2,
+                                                 checkpoint_every=2, keep_checkpoints=2,
+                                                 learning_rate=1e-3,
+                                                 checkpoint_dir=os.path.join(tmp, mode)))
+            flash_attention_fwd.launches = 0
+            trainer = Watched(rc, use_mesh=False, failure_plan=Plan(failures={3: 1}),
+                              device="cuda")
+            if mode == "graphed":
+                report = trainer.train()
+            else:
+                with disable_jit():
+                    report = trainer.train()
+            steps = list_steps(rc.train.checkpoint_dir)
+            times = [t * 1e3 for t in trainer._step_times]
+            print(f"  Trainer, {mode}: {report.steps_done} steps, {report.restarts} restart, "
+                  f"{report.checkpoints} checkpoints (kept: {steps}), losses "
+                  f"{[round(x, 4) for x in report.losses]}, flash launches "
+                  f"{flash_attention_fwd.launches}; step times (host clock, ms) "
+                  f"{[round(t, 2) for t in times]}, the last two's median "
+                  f"{statistics.median(times[-2:]):.2f} ms; {CARD}")
+            check(report.restarts == 1 and report.steps_done >= 6 and steps[-1] == 6,
+                  f"the trainer did not restore and finish: {report}")
+            check(all(math.isfinite(x) for x in report.losses), "a trainer loss is not finite")
+            check(flash_attention_fwd.launches > 0, "the trainer never launched flash")
+            out[mode] = {"losses": report.losses, "step_ms": times}
+            if mode == "graphed":
+                grown = mem["restored"][-1] - mem["before_failure"]
+                print(f"  memory allocated before the failure {mem['before_failure']} B, after "
+                      f"the restart's restore {mem['restored'][-1]} B ({grown:+d} B; the "
+                      f"state {mem['state_bytes']} B)")
+                check(grown < mem["state_bytes"] / 2,
+                      "the restart kept the old compiled step (or its state) alive")
+                out["restore_grew_bytes"] = grown
+                out["state_bytes"] = mem["state_bytes"]
+        same = out["graphed"]["losses"] == out["eager"]["losses"]
+        print(f"  graphed losses == eager losses, bit for bit: {same}")
+        check(same, "the graphed trainer's losses differ from the eager trainer's")
         env = dict(os.environ, PYTHONPATH=str(SRC))
         cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
                               TRAIN_ARCH, "--smoke", "--steps", "4", "--ckpt-dir",
@@ -1940,6 +2008,7 @@ def trainer_phase():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
+    return out
 
 
 def _start_nccl_group():
@@ -1967,7 +2036,8 @@ def _leaf_rel(a, b):
 # magnitude (on a (1, 1) mesh both run the same kernels in the same order)
 MESH_TOL = 1e-5
 MESH_STATE_TOL = 1e-6
-# the sharded trainer's steps on qwen1.5-4b FULL (the first is cold)
+# the sharded trainer's steps on qwen1.5-4b FULL: the first eager, the
+# second captured, the third a replay
 MESH_STEPS = 3
 
 
@@ -2112,24 +2182,26 @@ def mesh_phase(train):
                 report = trainer.train()
                 torch.cuda.synchronize()
                 break
-            except torch.cuda.OutOfMemoryError:
+            except torch.cuda.OutOfMemoryError as e:
+                print(f"  batch {batch_size}: out of memory after {len(trainer._step_times)} "
+                      f"steps ({str(e).splitlines()[0][:240]}); one less")
                 del trainer
-                print(f"  batch {batch_size}: out of memory; one less")
                 batch_size -= 1
                 check(batch_size > 0, "qwen1.5-4b FULL does not fit at batch 1 on the mesh")
         wall = time.perf_counter() - t0
         peak_bytes = torch.cuda.max_memory_allocated()
         peak_gb = peak_bytes / 1e9
         times = trainer._step_times
-        warm_ms = times[1] * 1e3
+        warm_ms = times[2] * 1e3        # the first eager, the second captured
         flash_per_step = flash_attention_fwd.launches / MESH_STEPS
         print(f"  Trainer(use_mesh=True), {TRAIN_ARCH} FULL, seq {TRAIN_SEQ}, batch "
               f"{batch_size} (reduced: train_4k's {C.TRAIN_4K.global_batch} cut to "
               f"{batch_size}, the largest that fits): losses "
               f"{[round(x, 4) for x in report.losses]}, {wall:.1f}s in all")
-        print(f"  step times {[round(t * 1e3, 1) for t in times]} ms; warm step "
-              f"{warm_ms:.1f} ms beside phase 15's {train['warm_ms']:.1f} ms (batch "
-              f"{train['batch']}, no mesh); peak {peak_gb:.2f} GB beside phase 15's "
+        print(f"  step times {[round(t * 1e3, 1) for t in times]} ms (eager, captured, "
+              f"replayed); warm step graphed {warm_ms:.1f} ms beside phase 15's eager "
+              f"{train['warm_ms']:.1f} ms (batch {train['batch']}, no mesh); peak "
+              f"{peak_gb:.2f} GB beside phase 15's "
               f"{train['peak_gb']:.2f} GB; {flash_per_step:.0f} flash launches a step "
               f"(phase 15: {train['launches']['flash_attention'] / TRAIN_STEPS:.0f})")
         check(report.steps_done == MESH_STEPS and all(math.isfinite(x) for x in report.losses),
@@ -2344,9 +2416,9 @@ def _flash_per_prefill(cfg):
 def _serve_full(arch, smoke=False):
     """``arch`` served through ``launch.serve.run`` (bf16, random weights
     from seed 0) on the llama3-8b requests, every kernel's count set to 0
-    just before and read just after; then a warm repeat of the same
-    requests (prefill ms, decode tok/s, peak memory, which must stay under
-    the card's), the flash launches of one prefill, and a profile of one
+    just before and read just after; then a second call (the prefill's
+    capture) and a warm repeat of the same requests (prefill ms, decode
+    tok/s, peak memory, which must stay under the card's), the flash launches of one prefill, and a profile of one
     prefill and of four decode steps (the device's busy share)."""
     import gc
 
@@ -2371,8 +2443,11 @@ def _serve_full(arch, smoke=False):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in kerns.items()}
-    peak_first = torch.cuda.max_memory_allocated() / 1e9
     server, model, params, requests = res["server"], res["model"], res["params"], res["requests"]
+    # the second call captures the prefill (a compiled step's first call
+    # runs eagerly), so the warm repeat after it replays both steps
+    server.generate(requests, max_new_tokens=SERVE_NEW)
+    peak_first = torch.cuda.max_memory_allocated() / 1e9
     cfg, tokens = model.cfg, res["tokens"]
     weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
@@ -2423,8 +2498,9 @@ def _serve_full(arch, smoke=False):
           f"use before): first call {first_s:.1f} s, launches {json.dumps(launches)}; warm: "
           f"prefill {out['prefill_ms']:.1f} ms (device busy {share}), decode "
           f"{out['decode_tok_per_s']:.1f} tok/s ({out['decode_step_ms']:.2f} ms a step), "
-          f"peak memory {peak:.2f} GB ({peak_first:.2f} GB in the first call, init "
-          f"included; the card holds {card_gb:.2f}); flash {per_prefill} a prefill; "
+          f"peak memory {peak:.2f} GB ({peak_first:.2f} GB over the first two calls, "
+          f"init and the captures included; the card holds {card_gb:.2f}); flash "
+          f"{per_prefill} a prefill; "
           f"{CARD}")
     return out, res
 
@@ -3095,10 +3171,204 @@ def jit_phase(moe):
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     moe_peak = max(moe["peak_gb"], moe["peak_first_call_gb"])
     print(f"  {MOE_ARCH} FULL served graphed (phase 19): peak {moe['peak_first_call_gb']:.2f} GB "
-          f"over the first call (init, warm-up and capture included), {moe['peak_gb']:.2f} GB "
+          f"over the first two calls (init, the eager calls and the captures included), "
+          f"{moe['peak_gb']:.2f} GB "
           f"warm, beside 63.59 GB eager (PR 17); the card holds {card_gb:.2f} GB")
     check(moe_peak < card_gb, f"{MOE_ARCH} graphed peaks at {moe_peak:.2f} GB")
     out["moe_peak_gb"] = {"first_call": moe["peak_first_call_gb"], "warm": moe["peak_gb"]}
+    return out
+
+
+#: phase 28: the families whose smoke step trains graphed against eager
+TRAIN_FAMILIES = ("qwen1.5-4b", "qwen3-moe-30b-a3b", "internvl2-2b", "zamba2-7b",
+                  "rwkv6-1.6b", "seamless-m4t-large-v2", "lenet")
+#: phase 28's steps a run (the first eager, the second captured)
+JIT_TRAIN_STEPS = 4
+
+
+def _state_gap(a, b):
+    """The largest difference between two states' leaves (params, master,
+    m, v), each relative to the second's largest magnitude."""
+    from repro_torch.optim import tree_leaves
+    return max(_leaf_rel(x, y) for pa, pb in zip(a[1:], b[1:])
+               for x, y in zip(tree_leaves(pa), tree_leaves(pb)))
+
+
+def _same_state(a, b):
+    import torch
+    from repro_torch.optim import tree_leaves
+    return torch.equal(a.step, b.step) and all(
+        torch.equal(x, y) for pa, pb in zip(a[1:], b[1:])
+        for x, y in zip(tree_leaves(pa), tree_leaves(pb)))
+
+
+def _smoke_train_graphed(arch, **train):
+    """``JIT_TRAIN_STEPS`` smoke steps (fp32) of ``arch`` through one
+    ``train_bundle(rc).jit()``, graphed and under ``disable_jit``, from one
+    state and one set of batches, the rate warming up over 2 steps; a
+    second eager run beside them gives the gap two eager runs leave.  Per
+    step: the metrics and every leaf of the new state, graphed against
+    eager."""
+    import dataclasses
+
+    import torch
+    from repro_torch import config as C
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.runtime.jit import disable_jit
+    from repro_torch.runtime.steps import init_train_state, train_bundle
+    cfg = dataclasses.replace(C.get(arch).smoke, dtype="float32")
+    rc = C.RunConfig(model=cfg, shape=C.ShapeConfig("smoke_train", 64, 4, "train"),
+                     mesh=C.SMOKE_MESH,
+                     train=C.TrainConfig(warmup_steps=2, total_steps=10, learning_rate=1e-3,
+                                         **train))
+    data = batches_for(cfg, rc.shape, 0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+               for _ in range(JIT_TRAIN_STEPS)]
+    step = train_bundle(rc).jit()
+    graphed, eager, again = (init_train_state(rc, 0, "cuda") for _ in range(3))
+    rows = []
+    for b in batches:
+        with disable_jit():
+            eager, me = step(eager, b)
+            again, ma = step(again, b)
+        graphed, mg = step(graphed, b)
+        rows.append({
+            "lr": float(mg["lr"]),
+            "bit_equal": _same_state(graphed, eager) and all(
+                torch.equal(mg[k], me[k]) for k in me),
+            "eager_repeats": _same_state(again, eager) and all(
+                torch.equal(ma[k], me[k]) for k in me),
+            "gap": max([_state_gap(graphed, eager)] + [_leaf_rel(mg[k], me[k]) for k in me]),
+            "eager_gap": max([_state_gap(again, eager)]
+                             + [_leaf_rel(ma[k], me[k]) for k in me])})
+    return rows, len(step.graphs), step.last.launches
+
+
+def train_jit_phase(train):
+    """Phase 28: the trainer's compiled step (``train_bundle(rc).jit()``,
+    as ``Trainer`` builds it) against the eager step.  (a) Every family's
+    smoke step in fp32, ``JIT_TRAIN_STEPS`` steps from one state and one
+    set of batches, the rate moving: the metrics and every leaf of the new
+    state bit for bit, or, where two eager runs differ, within their gap;
+    the dense config also at ``accum_steps=2``.  (b) qwen1.5-4b FULL at
+    phase 15's batch and seq through the ``DataPipeline``, from
+    ``init_train_state`` seed 0 and phase 15's data: an eager first step, a
+    capture, a timed replay and a profiled one; each step's loss, grad norm
+    and rate against phase 15's eager ones; peak memory over the first call
+    and warm, against the card's; the flash launches inside the graph.
+    (c), the ``Trainer`` through a failure, graphed, is phase 18."""
+    import gc
+
+    import torch
+    from repro_torch import config as C
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.runtime.steps import init_train_state, train_bundle
+    phase(f"28. the trainer's compiled step on the card: every family's smoke step graphed "
+          f"against eager; {TRAIN_ARCH} FULL graphed against phase 15")
+    out = {"card": CARD, "smoke": {}}
+    cases = [(arch, {}) for arch in TRAIN_FAMILIES] + [(TRAIN_ARCH, {"accum_steps": 2})]
+    for arch, extra in cases:
+        label = arch + "".join(f" {k}={v}" for k, v in extra.items())
+        rows, n_graphs, launches = _smoke_train_graphed(arch, **extra)
+        lrs = [r["lr"] for r in rows]
+        bit = all(r["bit_equal"] for r in rows)
+        repeats = all(r["eager_repeats"] for r in rows)
+        gap, eager_gap = max(r["gap"] for r in rows), max(r["eager_gap"] for r in rows)
+        rule = ("bit for bit" if bit else
+                f"within two eager runs' gap: {gap:.3e} against {eager_gap:.3e}")
+        print(f"  {label}: {JIT_TRAIN_STEPS} steps graphed against eager, {rule} (eager "
+              f"repeats itself bit for bit: {repeats}); lr {[f'{x:.3e}' for x in lrs]}; "
+              f"{n_graphs} graph, flash launches in it {launches['flash_attention_fwd']}, "
+              f"tiled_matmul {launches['tiled_matmul']}")
+        check(n_graphs == 1, f"{label}: {n_graphs} graphs")
+        check(len(set(lrs)) == len(lrs), f"{label}: the rate did not move across replays: {lrs}")
+        check(bit or (not repeats and gap <= eager_gap),
+              f"{label}: graphed differs from eager by {gap:.3e} (two eager runs: "
+              f"{eager_gap:.3e}, repeating bit for bit: {repeats})")
+        out["smoke"][label] = {"bit_equal": bit, "gap": gap, "eager_gap": eager_gap,
+                               "eager_repeats": repeats, "lr": lrs}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = C.get(TRAIN_ARCH).full
+    batch = train["batch"]
+    card = torch.cuda.get_device_properties(0).total_memory
+    print(f"  device memory in use before: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    state = init_train_state(_train_cfg(cfg, 1, **train["train_cfg"]), seed=0, device="cuda")
+    rc = _train_cfg(cfg, batch, **train["train_cfg"])
+    step = train_bundle(rc).jit()
+    data = DataPipeline(batches_for(cfg, rc.shape, seed=0), "cuda")
+    metrics, times, busy_ms, peaks = [], [], None, []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i < TRAIN_STEPS - 1:
+                state, m = step(state, next(data))
+                m = {k: float(v) for k, v in m.items()}
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            else:
+                box = {}
+
+                def last():
+                    box["state"], box["m"] = step(state, next(data))
+                win = {}
+                busy_ms = _profile("graphed train step", last, 1, top=6, host_ops=False,
+                                   window=win)
+                state, m = box.pop("state"), {k: float(v) for k, v in box.pop("m").items()}
+                times.append(win.get("ms", float("nan")) / 1e3)
+            peaks.append((torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()))
+            if i == 1:          # the eager call and the capture behind, the replays ahead
+                torch.cuda.reset_peak_memory_stats()
+            metrics.append(m)
+            print(f"  step {i + 1} ({('eager', 'captured + replayed', 'replayed')[min(i, 2)]}): "
+                  f"loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, lr {m['lr']:.3e}, "
+                  f"{times[-1]:.3f}s")
+    finally:
+        data.close()
+    # a replay allocates nothing: the graph's pool is reserved, and the
+    # tensors alive between steps are allocated
+    (first_gb, first_res), (warm_gb, warm_res) = (
+        [max(p[j] for p in part) / 1e9 for j in (0, 1)] for part in (peaks[:2], peaks[2:]))
+    flash_in_graph = step.last.launches["flash_attention_fwd"]
+    eager_m = train["metrics"]
+    keys = ("loss", "grad_norm", "lr")
+    bit = all(g[k] == e[k] for g, e in zip(metrics, eager_m) for k in keys)
+    gaps = {k: max(abs(g[k] - e[k]) / abs(e[k]) for g, e in zip(metrics, eager_m))
+            for k in keys}
+    warm_ms = times[2] * 1e3
+    tok_s = batch * TRAIN_SEQ / times[2]
+    share = None if busy_ms is None else busy_ms / (times[-1] * 1e3)
+    print(f"  per-step loss, grad_norm and lr against phase 15's eager steps: bit for bit "
+          f"{bit} (relative gaps {json.dumps(gaps)})")
+    print(f"  batch {batch} x {TRAIN_SEQ}: peak allocated {first_gb:.2f} GB over the first call "
+          f"and the capture (reserved {first_res:.2f} GB); warm, allocated {warm_gb:.2f} GB and "
+          f"reserved {warm_res:.2f} GB (the graph's pool); the card holds {card / 1e9:.2f} GB; "
+          f"warm step "
+          f"{warm_ms:.1f} ms graphed beside phase 15's eager {train['warm_ms']:.1f} ms, "
+          f"{tok_s:.1f} tokens/s beside {train['tok_s']:.1f}; device busy "
+          + ("not measured" if share is None else
+             f"{100 * share:.1f}% of the profiled replay beside phase 15's "
+             f"{100 * train['busy_ms'] / train['profiled_ms']:.1f}%") + f"; {CARD}")
+    print(f"  flash launches inside the train graph: {flash_in_graph}")
+    check(len(metrics) == len(eager_m) and bit,
+          f"the graphed {TRAIN_ARCH} FULL steps differ from phase 15's eager ones: {gaps}")
+    check(max(first_res, warm_res) * 1e9 < card,
+          f"the graphed step reserves {max(first_res, warm_res):.2f} GB")
+    check(flash_in_graph == 2 * cfg.num_layers,
+          f"the train graph holds {flash_in_graph} flash launches, expected "
+          f"{2 * cfg.num_layers}")
+    out["full"] = {"batch": batch, "bit_equal": bit, "gaps": gaps, "peak_first_gb": first_gb,
+                   "peak_warm_gb": warm_gb, "reserved_first_gb": first_res,
+                   "reserved_warm_gb": warm_res, "warm_ms": warm_ms, "tok_s": tok_s,
+                   "busy_ms": busy_ms, "profiled_ms": times[-1] * 1e3,
+                   "flash_in_graph": flash_in_graph, "step_s": times}
+    del state, step, data, m, box
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3129,7 +3399,7 @@ def main() -> int:
         train = train_phase()
         train["sim"] = train_sim_phase(train)
         train["witness"] = train_witness_phase()
-        trainer_phase()
+        train["trainer"] = trainer_phase()
         families = {MOE_ARCH: moe_serve_phase()}
         families.update(families_serve_phase())
         smokes = smoke_serve_phase()
@@ -3139,6 +3409,7 @@ def main() -> int:
         results = fleet["cluster"].pop("results")
         fleet.update(obs=obs_phase(results), validate=validate_phase(results))
         graphs = jit_phase(families[MOE_ARCH])
+        train["graphed"] = train_jit_phase(train)
         kernels[0]["launches_in_graph"] = {
             "one LeNet-full step": graphs["lenet"]["tiled_matmul_in_graph"]}
         flash = kernels[-1]
@@ -3156,8 +3427,9 @@ def main() -> int:
                                   f"({MESH_STEPS} steps, batch {meshed['batch']}, local_map)"] = \
             meshed["flash_launches"]
         flash["attention_backward_ms_per_train_step"] = train["attn_bwd_ms_step"]
-        flash["launches_in_graph"] = {f"one {SERVE_ARCH} FULL prefill":
-                                      graphs["flash_in_prefill_graph"]}
+        flash["launches_in_graph"] = {
+            f"one {SERVE_ARCH} FULL prefill": graphs["flash_in_prefill_graph"],
+            f"one {TRAIN_ARCH} FULL train step": train["graphed"]["full"]["flash_in_graph"]}
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "chip_smoke_analysis.json").write_text(json.dumps(
             {"correlation": correlation, "power": power, "gemma": gemma, "train": train,

@@ -7,7 +7,9 @@ On a mesh, :func:`repro_torch.distributed.sharding.place` then lays it
 out by its batch axes, as the
 reference places it with the step's batch sharding: every rank draws the
 same seeded batch (the reference's single controller draws it once) and
-keeps its shard, so nothing is sent.
+keeps its shard, so nothing is sent.  The worker places a batch holding
+:data:`repro_torch.runtime.jit.CAPTURE_LOCK`, so a compiled step's capture
+never runs beside it.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import place
+from repro_torch.runtime.jit import CAPTURE_LOCK
 
 #: what the worker puts at the end of its source
 _END = object()
@@ -71,9 +74,10 @@ class DataPipeline:
     def _worker(self):
         try:
             for item in self._source:
-                batch = shard_batch(item, self._device)
-                if self._mesh is not None:
-                    batch = place(batch, self._axes, self._rules, self._mesh)
+                with CAPTURE_LOCK:      # no device work while a step is captured
+                    batch = shard_batch(item, self._device)
+                    if self._mesh is not None:
+                        batch = place(batch, self._axes, self._rules, self._mesh)
                 if self._stop.is_set() or not self._put(batch):
                     return
         except Exception as e:          # surface worker errors to the consumer

@@ -82,10 +82,18 @@ class LeNet(nn.Module):
         self.cfg = cfg
         self.conv_algo = conv_algo
         self.device = resolve_device(device)
-        init = init_params(self.param_specs(), torch.Generator().manual_seed(seed),
-                           cfg.dtype)
         self.params = nn.ParameterDict(
-            {k: nn.Parameter(v.to(self.device)) for k, v in init.items()})
+            {k: nn.Parameter(v) for k, v in self.init(seed, self.device).items()})
+
+    def init(self, seed: int = 0, device: Optional[Union[str, torch.device]] = None,
+             keep=None) -> Params:
+        """The weights the model draws from ``seed`` (on the CPU generator),
+        on ``device`` (default cuda), as the LMs' ``init`` gives theirs to
+        ``init_train_state``; ``keep`` as :func:`init_params` takes it."""
+        device = resolve_device(device)
+        keep = keep or (lambda t, spec: t)
+        return init_params(self.param_specs(), torch.Generator().manual_seed(seed),
+                           self.cfg.dtype, keep=lambda t, spec: keep(t.to(device), spec))
 
     def param_specs(self) -> Dict[str, ParamSpec]:
         return param_specs(self.cfg)

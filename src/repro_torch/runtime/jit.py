@@ -8,19 +8,29 @@ of the other leaves: the key ``jax.jit`` retraces on — and replays it.
 The graph holds every kernel the eager step launches, in the same order,
 so a replay computes what the eager step computes, bit for bit.
 
-* The first call for a signature runs ``fn`` on a side stream first (the
-  warm-up: the hand kernels are built and their one-time host set-up —
-  ``cudaFuncSetAttribute``, the TMA encoder's entry point — runs outside
-  the capture), on copies of the donated arguments, so that the warm-up
-  changes nothing the caller holds; then captures, then replays.
-* The graph reads its inputs where the first call's tensors lie, and keeps
-  those tensors alive, at those addresses, as long as it lives: the flash
-  kernel encodes its TMA descriptors on the host at every launch, so the
-  captured launch holds the q/k/v addresses of the capture (a prefill's
-  q/k/v are intermediates of the graph's own pool, which stay put).  A
-  later call's tensor that lies elsewhere is copied there, over the first
-  call's values; one that *is* the captured tensor (the weights, a cache
-  handed back) is read in place.  So a caller passes a varying input (a
+* The first call for a signature runs ``fn`` eagerly, on the caller's own
+  arguments, and returns its result: it is a real step, and the warm-up
+  the capture needs (the hand kernels are built and their one-time host
+  set-up — ``cudaFuncSetAttribute``, the TMA encoder's entry point — runs,
+  autograd and cuBLAS set themselves up).  Nothing is copied for it, so a
+  step that donates a state of tens of GB holds one state, not two.  The
+  second call captures (``torch.cuda.graph`` first frees the allocator's
+  cached blocks, so the graph's pool does not sit beside the first call's
+  cached activations), then replays.  Both run on one side stream of the
+  device, the stream every capture of this module uses.
+* A capture is ``thread_local``: another host thread may call the CUDA
+  runtime meanwhile.  A thread that puts work on the device beside the
+  steps (the data pipeline's prefetch) holds :data:`CAPTURE_LOCK` while it
+  does, and a capture holds it throughout, so no such work interleaves
+  with one.
+* The graph reads its inputs where the capturing call's tensors lie, and
+  keeps those tensors alive, at those addresses, as long as it lives: the
+  flash kernel encodes its TMA descriptors on the host at every launch, so
+  the captured launch holds the q/k/v addresses of the capture (a
+  prefill's q/k/v are intermediates of the graph's own pool, which stay
+  put).  A later call's tensor that lies elsewhere is copied there, over
+  the capturing call's values; one that *is* the captured tensor (the
+  weights, the state or a cache handed back) is read in place.  So a caller passes a varying input (a
   batch) in a tensor it may lose, and keeps what it reuses at one address.
 * ``donate`` names the arguments the caller gives up, as
   ``donate_argnums`` does: the output of a donated argument's structure
@@ -29,13 +39,14 @@ so a replay computes what the eager step computes, bit for bit.
   where it is not already there (an update in place), so the output *is*
   the input's storage and comes back as the next call's input with no
   copy.
-* The outputs are the graph's own tensors: the next replay of the same
-  graph overwrites them.
+* From the second call on, the outputs are the graph's own tensors: the
+  next replay of the same graph overwrites them.
 
 On CPU tensors the compiled step is ``fn`` itself: the port's CPU mode, as
 the kernels' plain versions are, not a fallback.  A failed capture raises.
-Under :func:`disable_jit` every compiled step runs ``fn`` eagerly; it is
-the only way to run a compiled step eagerly on the card.
+Under :func:`disable_jit` every call of a compiled step runs ``fn``
+eagerly; past a signature's first call it is the only way to run a
+compiled step eagerly on the card.
 
 A replay runs no Python, so the kernel wrappers' ``launches`` counters
 would not move: a graph keeps the launches its capture recorded (taken
@@ -46,14 +57,16 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-#: eager calls of ``fn`` before a capture
-WARMUP_CALLS = 2
+#: held by a capture, and by any host thread while it puts work on the
+#: device beside the compiled steps
+CAPTURE_LOCK = threading.Lock()
 
 _EAGER = contextvars.ContextVar("repro_torch_disable_jit", default=False)
 
@@ -104,6 +117,23 @@ def _signature(x: Any) -> Any:
     return (type(x), x)
 
 
+def _device(args: Sequence[Any]) -> torch.device:
+    return next(x.device for x in tree_flatten(args)[0] if isinstance(x, torch.Tensor))
+
+
+#: each device's capture stream, made at its first use
+_STREAMS: Dict[torch.device, Any] = {}
+
+
+def _capture_stream(dev: torch.device):
+    """The one side stream of ``dev`` that every first call and capture
+    runs on: graphs that share a :class:`GraphPool` reuse each other's
+    freed blocks only when captured on one stream."""
+    if dev not in _STREAMS:
+        _STREAMS[dev] = torch.cuda.Stream(dev)
+    return _STREAMS[dev]
+
+
 @dataclass
 class Graph:
     """One captured signature: the graph, the tensors it reads (``None``
@@ -122,7 +152,8 @@ class Graph:
 
 class Jitted:
     """A compiled step (see the module docstring); ``graphs`` maps each
-    signature captured so far to its :class:`Graph`."""
+    signature captured so far to its :class:`Graph`, ``seen`` holds the
+    signatures whose first (eager) call has run."""
 
     def __init__(self, fn: Callable, donate: Iterable[int] = (),
                  pool: Optional[GraphPool] = None):
@@ -130,6 +161,7 @@ class Jitted:
         self.donate = tuple(sorted(set(donate)))
         self.pool = pool
         self.graphs: Dict[Any, Graph] = {}
+        self.seen: set = set()
         self.last: Optional[Graph] = None
 
     def __call__(self, *args: Any) -> Any:
@@ -142,6 +174,10 @@ class Jitted:
                              f"the cpu; got {sorted(devices)}")
         key = (spec, tuple(_signature(x) for x in leaves))
         g = self.graphs.get(key)
+        if g is None and key not in self.seen:
+            out = self._first_call(args)
+            self.seen.add(key)
+            return out
         if g is None:
             g = self.graphs[key] = self._capture(args)
         else:
@@ -153,30 +189,29 @@ class Jitted:
         self.last = g
         return g.out
 
-    def _warm_args(self, args: Sequence[Any]) -> List[Any]:
-        """``args`` with each donated argument's tensors copied."""
-        out = list(args)
-        for i in self.donate:
-            leaves, spec = tree_flatten(args[i])
-            out[i] = tree_unflatten([t.clone() if isinstance(t, torch.Tensor) else t
-                                     for t in leaves], spec)
+    def _first_call(self, args: Sequence[Any]) -> Any:
+        """``fn`` eagerly on ``args``, on the capture stream.  Its outputs
+        are blocks of that stream, which only a later first call (after it
+        waits for the caller's stream) or a capture (after the device
+        synchronizes) reuses."""
+        dev = _device(args)
+        side = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            out = self.fn(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
         return out
 
     def _capture(self, args: Sequence[Any]) -> Graph:
         leaves, _ = tree_flatten(args)
-        dev = next(x.device for x in leaves if isinstance(x, torch.Tensor))
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
-                self.fn(*self._warm_args(args))
-        torch.cuda.current_stream(dev).wait_stream(side)
-
+        dev = _device(args)
         counters = _counted()
         before = [f.launches for f in counters]
         graph = torch.cuda.CUDAGraph()
         pool = None if self.pool is None else self.pool.handle()
-        with torch.cuda.device(dev), torch.cuda.graph(graph, pool=pool):
+        with CAPTURE_LOCK, torch.cuda.device(dev), torch.cuda.graph(
+                graph, pool=pool, stream=_capture_stream(dev),
+                capture_error_mode="thread_local"):
             out = self._write_donated(args, self.fn(*args))
         launches = {}
         for f, n in zip(counters, before):

@@ -2,8 +2,8 @@
 
 The port of ``repro.runtime.steps``: the single source of truth for the
 train/prefill/decode step functions, their abstract inputs and their
-shardings, used by the trainer (which calls a step directly),
-:class:`~repro_torch.runtime.server.Server` (which compiles its steps with
+shardings, used by the trainer and
+:class:`~repro_torch.runtime.server.Server` (which compile their steps with
 :meth:`StepBundle.jit`, CUDA graphs on the card), the dry-run
 (``launch/dryrun.py``) and the capture frontend
 (:func:`repro_torch.core.capture.capture_bundle`, :meth:`StepBundle.lower`),
@@ -255,7 +255,7 @@ def init_train_state(run_cfg: RunConfig, seed: int = 0,
     shard of each (laid out by its logical axes) as it is drawn: the rank
     holds at most one whole leaf at a time, as the reference's init jitted
     with out-shardings does."""
-    model = build_model(run_cfg.model, run_cfg.sharding)
+    model = _step_model(run_cfg)
     keep = None
     if mesh is not None:
         rules = run_rules(run_cfg, model)

@@ -7,6 +7,12 @@ deadline monitoring (per-step wall-clock vs a rolling median; slow steps
 are logged and counted, the real-cluster analogue being reassignment of
 that host's data shard).
 
+The step is compiled (``bundle.jit()``, as the reference's): on the card
+the first step of a build runs eagerly, the second is captured into a
+CUDA graph, and every later one replays it; on the CPU it is the plain
+step.  The metrics are the graph's outputs, which the next replay
+overwrites, so the loss is read as soon as the step returns.
+
 Checkpoints go through the port's ``checkpoint`` store, in the reference's
 on-disk format, so either package can resume the other's run.  A save
 copies the state to host memory before the next step updates it in place.
@@ -123,7 +129,7 @@ class Trainer:
             if self.use_mesh and mesh is None:
                 log.warning("this rank is outside the %d-rank mesh: leaving", num_devices)
                 return self.report
-            step_fn = bundle.fn
+            step_fn = bundle.jit()
             state, start = self._init_or_restore(mesh, bundle)
             try:
                 for step in range(start, total):
@@ -157,7 +163,10 @@ class Trainer:
                 data.close()
                 ckpt.wait()
                 _barrier()      # every rank sees the checkpoint rank 0 committed
-                state = None    # the restart restores from disk: free it first
+                # the restart restores from disk: free the state first, and
+                # the compiled step, whose graphs keep it (their inputs) and
+                # their pool (the metrics are the pool's)
+                state = step_fn = metrics = None
                 self.report.restarts += 1
                 num_devices = max(self._device_count() - e.lost_devices, 1)
                 log.warning("failure at step %d -> elastic restart on %d device(s)",

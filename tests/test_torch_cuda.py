@@ -528,11 +528,13 @@ def test_jit_replays_the_eager_lenet_step_bit_for_bit(cuda):
     """The paper's step compiled (a CUDA graph: 14 ``tiled_matmul``
     launches, autograd, the params donated) against the same step eager,
     from one set of params and batches: equal bit for bit after each step.
-    A batch of another size captures a second graph; each graphed call
-    counts the graph's launches, and a capture its warm-up's."""
+    The first call of a signature runs eagerly, the second captures; a
+    batch of another size is a second signature, captured at its second
+    call.  Every call counts the launches it makes: the first call's own,
+    and a replay the graph's."""
     from repro_torch import config as C
     from repro_torch.models.lenet import LeNet, sgd_step
-    from repro_torch.runtime.jit import WARMUP_CALLS, disable_jit, jit
+    from repro_torch.runtime.jit import disable_jit, jit
     cfg = C.get("lenet").full
     model = LeNet(cfg, conv_algo="gemm", device=cuda, seed=0)
     step = jit(lambda p, x, y: sgd_step(model, p, x, y, 0.05), donate=(0,))
@@ -550,15 +552,140 @@ def test_jit_replays_the_eager_lenet_step_bit_for_bit(cuda):
         with disable_jit():
             eager, loss_e, _ = step(eager, x, y)
         graphed, loss_g, _ = step(graphed, x, y)
+        assert len(step.graphs) == min(i, 1)
         assert torch.equal(loss_g, loss_e)
         for k in eager:
             assert torch.equal(graphed[k], eager[k]), (i, k)
-    assert len(step.graphs) == 1 and step.last.launches["tiled_matmul"] == 14
-    assert tiled_matmul.launches - before == 3 * 14 + (WARMUP_CALLS + 3) * 14
+    assert step.last.launches["tiled_matmul"] == 14
+    assert tiled_matmul.launches - before == 3 * 14 + 3 * 14
     first = step.last
-    x, y = batch(16, 7)
-    graphed, _, _ = step(graphed, x, y)
+    for i in range(2):
+        x, y = batch(16, 7 + i)
+        graphed, _, _ = step(graphed, x, y)
     assert len(step.graphs) == 2 and step.last is not first
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_matches_eager_with_the_rate_moving(cuda):
+    """The qwen1.5-4b smoke train step (fp32) through ``train_bundle(rc).jit()``
+    and under ``disable_jit``, from one state and one set of batches, over
+    4 steps (eager, captured, two replays) while the rate warms up and
+    decays: every metric and every leaf of the new state bit for bit."""
+    import dataclasses
+
+    from repro_torch import config as C
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime.jit import disable_jit
+    from repro_torch.runtime.steps import init_train_state, train_bundle
+    cfg = dataclasses.replace(C.get("qwen1.5-4b").smoke, dtype="float32")
+    rc = C.RunConfig(model=cfg, shape=C.ShapeConfig("t", 64, 4, "train"), mesh=C.SMOKE_MESH,
+                     train=C.TrainConfig(warmup_steps=2, total_steps=10, learning_rate=1e-3))
+    data = batches_for(cfg, rc.shape, 0)
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in next(data).items()}
+               for _ in range(4)]
+    step = train_bundle(rc).jit()
+    graphed, eager = init_train_state(rc, 0, cuda), init_train_state(rc, 0, cuda)
+    lrs = []
+    for i, b in enumerate(batches):
+        with disable_jit():
+            eager, me = step(eager, b)
+        graphed, mg = step(graphed, b)
+        for k in me:
+            assert torch.equal(mg[k], me[k]), (i, k)
+        for pg, pe in zip(graphed, eager):
+            for a, e in zip(tree_leaves(pg), tree_leaves(pe)):
+                assert torch.equal(a, e), i
+        lrs.append(float(mg["lr"]))
+    assert len(step.graphs) == 1 and len(set(lrs)) == 4
+    assert step.last.launches["flash_attention_fwd"] == 2 * cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_a_signatures_first_call_copies_no_donated_state(cuda):
+    """A step that donates a 1 GB state: its first call (eager), the
+    capture and a replay together peak under 1.5 times the state."""
+    from repro_torch.runtime.jit import jit
+
+    def fn(state, x):
+        for t in state.values():
+            t.add_(x.mean())
+        return state, (x * 2).sum()
+
+    state = {k: torch.zeros(1 << 27, device=cuda) for k in ("w", "m")}
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    step = jit(fn, donate=(0,))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        state, total = step(state, torch.full((1024,), float(i + 1), device=cuda))
+    assert float(state["w"][0]) == 6.0 and float(total) == 2 * 3 * 1024
+    assert len(step.graphs) == 1
+    assert torch.cuda.max_memory_allocated() - base < 0.5 * nbytes
+
+
+@pytest.mark.cuda
+def test_a_capture_holds_with_the_pipeline_prefetching(cuda):
+    """Five compiled steps, each captured while the data pipeline's worker
+    pins and copies the next batches: every capture holds, and every
+    replay reads its own batch."""
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.runtime.jit import jit
+
+    def fn(w, batch):
+        x = batch["x"]
+        for _ in range(64):          # a capture of some length
+            x = x * 1.0
+        w.add_(1.0)
+        return w, x[:, 0].sum()
+
+    rows = 1 << 12
+    src = ({"x": np.full((rows, 1024), i, np.float32)} for i in range(10 ** 6))
+    data = DataPipeline(src, cuda, prefetch=2)
+    try:
+        seen = 0
+        for _ in range(5):
+            step = jit(fn, donate=(0,))
+            w = torch.zeros((), device=cuda)
+            for i in range(4):
+                w, s = step(w, next(data))
+                assert float(s) == rows * seen and float(w) == i + 1
+                seen += 1
+            assert len(step.graphs) == 1
+    finally:
+        data.close()
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_restores_and_matches_eager(cuda, tmp_path):
+    """The ``Trainer`` (its step compiled) on the qwen1.5-4b smoke config
+    in fp32 through a failure at step 3 and a restore from the step-2
+    checkpoint, against the same run under ``disable_jit``: the same
+    losses, bit for bit."""
+    import dataclasses
+
+    from repro_torch import config as C
+    from repro_torch.runtime.failure import FailurePlan
+    from repro_torch.runtime.jit import disable_jit
+    from repro_torch.runtime.trainer import Trainer
+    cfg = dataclasses.replace(C.get("qwen1.5-4b").smoke, dtype="float32")
+    reports = []
+    for mode in ("graphed", "eager"):
+        rc = C.RunConfig(model=cfg, shape=C.ShapeConfig("t", 64, 4, "train"), mesh=C.SMOKE_MESH,
+                         train=C.TrainConfig(total_steps=6, warmup_steps=2, checkpoint_every=2,
+                                             keep_checkpoints=2, learning_rate=1e-3,
+                                             checkpoint_dir=str(tmp_path / mode)))
+        trainer = Trainer(rc, use_mesh=False, failure_plan=FailurePlan(failures={3: 1}),
+                          device=cuda)
+        if mode == "graphed":
+            reports.append(trainer.train())
+        else:
+            with disable_jit():
+                reports.append(trainer.train())
+    graphed, eager = reports
+    assert graphed.restarts == eager.restarts == 1 and graphed.steps_done == 7
+    assert graphed.losses == eager.losses
 
 
 @pytest.mark.cuda

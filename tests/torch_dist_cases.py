@@ -408,6 +408,37 @@ def case_trainer(rank, inp):
     return {"reports": reports}
 
 
+def case_trainer_jit(rank, inp):
+    """The trainer on the (2, 2) mesh, two steps: each rank builds its step
+    through ``StepBundle.jit`` and runs both steps through it."""
+    from repro_torch.runtime.jit import Jitted
+    from repro_torch.runtime.steps import StepBundle
+    from repro_torch.runtime.trainer import Trainer
+    made, calls = [], []
+    real_jit, real_call = StepBundle.jit, Jitted.__call__
+
+    def spy_jit(self, *args):
+        made.append(real_jit(self, *args))
+        return made[-1]
+
+    def spy_call(self, *args):
+        calls.append(self)
+        return real_call(self, *args)
+
+    StepBundle.jit, Jitted.__call__ = spy_jit, spy_call
+    try:
+        rc = _run_cfg(4, 32, checkpoint_every=0, total_steps=2,
+                      checkpoint_dir=str(inp["ckpt_dir"]))
+        report = Trainer(rc, use_mesh=True, device="cpu").train()
+    finally:
+        StepBundle.jit, Jitted.__call__ = real_jit, real_call
+    reports = [None] * WORLD
+    dist.all_gather_object(reports, {"steps_done": report.steps_done, "made": len(made),
+                                     "through_it": sum(c is made[0] for c in calls),
+                                     "calls": len(calls)})
+    return {"reports": reports}
+
+
 def _worker(rank, case, directory, port):
     torch.set_num_threads(max(1, (os.cpu_count() or WORLD) // WORLD))   # the cores, shared
     try:
