@@ -9,7 +9,8 @@ reference places it with the step's batch sharding: every rank draws the
 same seeded batch (the reference's single controller draws it once) and
 keeps its shard, so nothing is sent.  The worker places a batch holding
 :data:`repro_torch.runtime.jit.CAPTURE_LOCK`, so a compiled step's capture
-never runs beside it.
+never runs beside it.  The consumer's wait for a batch is the span
+``data.wait`` (:data:`repro_torch.obs.TRACER`).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import place
+from repro_torch.obs.trace import TRACER
 from repro_torch.runtime.jit import CAPTURE_LOCK
 
 #: what the worker puts at the end of its source
@@ -89,7 +91,8 @@ class DataPipeline:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with TRACER.span("data.wait"):
+            item = self._q.get()
         if item is _END:
             self._q.put(_END)
             raise StopIteration

@@ -10,7 +10,9 @@ launches the kernel; on CPU tensors it runs :func:`attention_ref`.  Unlike
 the reference wrapper it neither pads nor falls back: the kernel masks
 ragged sequence ends itself.  Query rows that see no key (a window shorter
 than s - t + 1) get ``attention_ref``'s value on both devices: on the card
-the op writes them after the kernel, which refuses them.
+the op writes them after the kernel, which refuses them.  The op's forward
+is the region ``attn.flash_fwd`` and its backward ``attn.bwd``
+(:func:`repro_torch.obs.region`).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels.dispatch import use_kernel
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.obs import region
 
 
 def first_keyless_row(s: int, t: int, window: int) -> int:
@@ -108,15 +111,16 @@ def _backward(ctx, grad):
     b, h, s, _ = q.shape
     kvh, t = k.shape[1], k.shape[2]
     group = h // kvh
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    for i, h0, n in backward_pieces(b, kvh, group, s, t):
-        kv = (slice(i, i + 1), slice(h0, h0 + n))
-        qh = (slice(i, i + 1), slice(h0 * group, (h0 + n) * group))
-        with torch.enable_grad():
-            qi, ki, vi = (x.detach().requires_grad_() for x in (q[qh], k[kv], v[kv]))
-            out = attention_ref(qi, ki, vi, **ctx.mask)
-        dqi, dki, dvi = torch.autograd.grad(out, (qi, ki, vi), grad[qh])
-        dq[qh], dk[kv], dv[kv] = dqi, dki, dvi
+    with region("attn.bwd"):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        for i, h0, n in backward_pieces(b, kvh, group, s, t):
+            kv = (slice(i, i + 1), slice(h0, h0 + n))
+            qh = (slice(i, i + 1), slice(h0 * group, (h0 + n) * group))
+            with torch.enable_grad():
+                qi, ki, vi = (x.detach().requires_grad_() for x in (q[qh], k[kv], v[kv]))
+                out = attention_ref(qi, ki, vi, **ctx.mask)
+            dqi, dki, dvi = torch.autograd.grad(out, (qi, ki, vi), grad[qh])
+            dq[qh], dk[kv], dv[kv] = dqi, dki, dvi
     return dq, dk, dv, None, None, None
 
 
@@ -128,4 +132,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (b, h, s, d); k/v: (b, kv, t, d) head-major -> (b, h, s, d).
     Differentiable; the hand kernel on CUDA, the plain version on the CPU."""
-    return flash_attention_op(q, k, v, bool(causal), int(window), float(softcap))
+    with region("attn.flash_fwd"):
+        return flash_attention_op(q, k, v, bool(causal), int(window), float(softcap))

@@ -10,7 +10,9 @@ port calls the ``repro_torch::flash_attention`` op instead, at every
 length: the hand kernel on CUDA, its plain version on the CPU.  So the
 reference's ``chunked_sdpa`` has no counterpart here.
 Decode attention (one query against the cache) stays plain PyTorch math, as
-in the reference, which runs no Pallas kernel there.
+in the reference, which runs no Pallas kernel there: the region
+``attn.core`` (:func:`repro_torch.obs.region`), beside the flash op's
+``attn.flash_fwd``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.distributed.sharding import ambient_mesh, gather_dims, lc
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import ParamSpec, apply_rope, dense
+from repro_torch.obs import region
 
 NEG_INF = -2.3819763e38   # the reference's mask value (min bf16-representable fp32)
 
@@ -235,10 +238,11 @@ def attention_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     row = posv.long()
     _write_row(cache_k, k_new, row)
     _write_row(cache_v, v_new, row)
-    k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
-    bias = _mask_bias(posv, k_pos, causal=True, window=window,
-                      k_valid_len=pos + 1)
-    out = sdpa(q, cache_k, cache_v, bias, cfg.logit_softcap)
+    with region("attn.core"):
+        k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+        bias = _mask_bias(posv, k_pos, causal=True, window=window,
+                          k_valid_len=pos + 1)
+        out = sdpa(q, cache_k, cache_v, bias, cfg.logit_softcap)
     out = dense(_merge_heads(out), params["wo"])
     return out, (cache_k, cache_v)
 

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import gather_dims, inner_dims, lc, whole_grad
+from repro_torch.obs import region
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -175,7 +176,9 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    return dense(F.silu(dense(x, w_gate)) * dense(x, w_up), w_down)
+    """The dense MLP (the region ``ffn``)."""
+    with region("ffn"):
+        return dense(F.silu(dense(x, w_gate)) * dense(x, w_up), w_down)
 
 
 def rope_freqs(head_dim: int, theta: float,
@@ -238,21 +241,23 @@ def lm_loss_from_hidden(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Ten
     recomputed in the backward pass (``torch.utils.checkpoint`` on the chunk,
     the reference's ``jax.checkpoint``), bounding loss memory at
     O(b * chunk * V).  The chunk is the largest divisor of s that is at most
-    ``chunk``.  Returns (loss_mean, ce_mean) over the mask's tokens.
+    ``chunk``.  Returns (loss_mean, ce_mean) over the mask's tokens.  The
+    forward is the region ``loss``.
     """
-    b, s, _ = x.shape
-    c = next(cc for cc in range(min(chunk, s), 0, -1) if s % cc == 0)
-    if mask is None:
-        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    tot, ce_tot, cnt = zero, zero, zero
-    for i in range(0, s, c):
-        args = (x[:, i:i + c], head_w, labels[:, i:i + c], mask[:, i:i + c], z_loss)
-        if torch.is_grad_enabled():
-            t, ct, n = checkpoint(_chunk_loss, *args, use_reentrant=False,
-                                  preserve_rng_state=False)
-        else:
-            t, ct, n = _chunk_loss(*args)
-        tot, ce_tot, cnt = tot + t, ce_tot + ct, cnt + n
-    denom = torch.clamp(cnt, min=1.0)
-    return tot / denom, ce_tot / denom
+    with region("loss"):
+        b, s, _ = x.shape
+        c = next(cc for cc in range(min(chunk, s), 0, -1) if s % cc == 0)
+        if mask is None:
+            mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        tot, ce_tot, cnt = zero, zero, zero
+        for i in range(0, s, c):
+            args = (x[:, i:i + c], head_w, labels[:, i:i + c], mask[:, i:i + c], z_loss)
+            if torch.is_grad_enabled():
+                t, ct, n = checkpoint(_chunk_loss, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                t, ct, n = _chunk_loss(*args)
+            tot, ce_tot, cnt = tot + t, ce_tot + ct, cnt + n
+        denom = torch.clamp(cnt, min=1.0)
+        return tot / denom, ce_tot / denom

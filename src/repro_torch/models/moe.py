@@ -14,6 +14,11 @@ rows and the expert products on its experts (DTensor has no rule for
 ``searchsorted``, and would gather the whole batch for the gathers).
 
 The auxiliary load-balance loss follows Switch Transformer (eq. 4-6).
+
+Its stages are the regions ``moe.route`` (the router, the dispatch plan and
+the aux loss), ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
+(:func:`repro_torch.obs.region`), and its routing is counted
+(:mod:`repro_torch.obs.routing`) from the ``filled`` mask.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.distributed.sharding import lc, on_shards
 from repro_torch.models.layers import ParamSpec
+from repro_torch.obs import region, routing
 
 CAPACITY_FACTOR = 1.25
 
@@ -177,21 +183,26 @@ def moe_ffn(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     # on a mesh each rank routes its own rows (the dispatch is block-local;
     # DTensor has no rule for searchsorted)
     rows = ("batch",)
-    probs, gate_idx, gate_vals, slot, gather_idx, filled = on_shards(
-        lambda xb, router: route({"router": router}, cfg, xb, cap), (x, params["router"]),
-        (rows, (None, None)), (rows,) * 6)
-    aux = aux_loss(probs, gate_idx, e)
+    with region("moe.route"):
+        probs, gate_idx, gate_vals, slot, gather_idx, filled = on_shards(
+            lambda xb, router: route({"router": router}, cfg, xb, cap), (x, params["router"]),
+            (rows, (None, None)), (rows,) * 6)
+        aux = aux_loss(probs, gate_idx, e)
+    routing.note(filled, e, b * s * k)
 
     # batched dispatch gather: (b, s, d) -> (b, e, cap, d), and the batched
     # combine: gather each (token, choice)'s slot, weight, sum; on a mesh
     # each rank gathers its own rows (DTensor would gather the whole batch)
-    xe = on_shards(lambda xb, ib, fb: _dispatch(xb, ib, fb, e, cap), (x, gather_idx, filled),
-                   (rows,) * 3, (rows,))
-    xe = lc(xe, ("batch", "experts", None, "embed"))
-    ye = _experts(xe, params["w_gate"], params["w_up"], params["w_down"])
-    ye = lc(ye, ("batch", "experts", None, "embed")).reshape(b, e * cap, d)
-    out = on_shards(lambda yb, sb, gb: _combine(yb, sb, gb, k), (ye, slot, gate_vals),
-                    (rows,) * 3, (rows,))
+    with region("moe.dispatch"):
+        xe = on_shards(lambda xb, ib, fb: _dispatch(xb, ib, fb, e, cap),
+                       (x, gather_idx, filled), (rows,) * 3, (rows,))
+        xe = lc(xe, ("batch", "experts", None, "embed"))
+    with region("moe.experts"):
+        ye = _experts(xe, params["w_gate"], params["w_up"], params["w_down"])
+        ye = lc(ye, ("batch", "experts", None, "embed")).reshape(b, e * cap, d)
+    with region("moe.combine"):
+        out = on_shards(lambda yb, sb, gb: _combine(yb, sb, gb, k), (ye, slot, gate_vals),
+                        (rows,) * 3, (rows,))
     if gather_once:
         out = lc(out, ("batch", "act_seq", "embed"))   # reduce-scatter back
     return out, aux.float()

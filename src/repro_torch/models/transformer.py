@@ -18,7 +18,9 @@ aux loss joins the training loss at 1e-2), at capacity factor
 ``moe_capacity`` (1.25) in training and prefill and without drops in
 decode, as the reference does.  ``vlm`` prepends the (b, frontend_seq, d)
 ``frontend_emb`` rows (a stub for the vision encoder's output) to the text
-embeddings, and its loss covers the text positions only.
+embeddings, and its loss covers the text positions only.  The head's
+product in a prefill, a decode step and the full forward is the region
+``lm_head`` (:func:`repro_torch.obs.region`).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamSpec, axes_tree, init_params, lm_loss_from_hidden,
                                        pad_vocab, rms_norm, rms_norm_spec,
                                        stack_specs, swiglu, torch_dtype)
+from repro_torch.obs import region
 from repro_torch.optim import TrainState
 
 Params = Dict[str, Any]
@@ -362,7 +365,8 @@ class DecoderLM(LMBase):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full logits and the MoE aux loss (zero for a model without MoE)."""
         x, aux = self.hidden(params, tokens, frontend_emb)
-        return lc(x @ params["head"], ("batch", "act_seq", "vocab")), aux
+        with region("lm_head"):
+            return lc(x @ params["head"], ("batch", "act_seq", "vocab")), aux
 
     # -------------------------------------------------------------- prefill
     def prefill(self, params: Params, batch: Mapping[str, torch.Tensor]
@@ -385,8 +389,10 @@ class DecoderLM(LMBase):
             x, _ = self._ffn(p_l, x + h, self.moe_capacity)
             x = lc(x, ("batch", "act_seq", "embed"))
         x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-        return x @ params["head"], {"k": lc(ks, KV_AXES), "v": lc(vs, KV_AXES),
-                                    "pos": position(s, x.device)}
+        with region("lm_head"):
+            logits = x @ params["head"]
+        return logits, {"k": lc(ks, KV_AXES), "v": lc(vs, KV_AXES),
+                        "pos": position(s, x.device)}
 
     def decode_state_specs(self, shape: ShapeConfig):
         """The cache a prefill of ``shape.seq_len`` leaves, as ``meta``
@@ -420,5 +426,6 @@ class DecoderLM(LMBase):
                                          window=self._window_for(idx))
             x, _ = self._ffn(p_l, x + h, 0.0)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-        return x @ params["head"], {"k": cache["k"], "v": cache["v"],
-                                    "pos": pos + 1}
+        with region("lm_head"):
+            logits = x @ params["head"]
+        return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

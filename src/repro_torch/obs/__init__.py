@@ -8,6 +8,12 @@ This package is that methodology applied to the whole simulator stack:
 * :mod:`repro_torch.obs.trace`     — hierarchical span tracer (the simulator's
   own wall-clock flight recorder, instrumented through engine /
   fastsched / cluster / topology / faults);
+* :mod:`repro_torch.obs.regions`   — regions of the port's model code
+  (:func:`region`): profiler ranges in eager steps, a region table of
+  node boundaries in each captured CUDA graph, and the markers that find
+  a traced replay's device events;
+* :mod:`repro_torch.obs.routing`   — a mixture-of-experts FFN's routing
+  counts (routed, dropped, experts filled) by compiled step;
 * :mod:`repro_torch.obs.metrics`   — labeled counter/gauge/histogram registry
   absorbing the previously scattered counters, plus the shared
   :class:`~repro_torch.obs.metrics.StageTimer` both CLIs use;
@@ -29,9 +35,10 @@ This package is that methodology applied to the whole simulator stack:
   (``python -m repro_torch.obs sentinel``, exit 0/3/2) and the
   ``BENCH_doctor.json`` trajectory.
 
-Import structure note: ``trace``/``metrics``/``export`` are
-dependency-free and imported eagerly — the engine and cluster layers
-import them at module load.  ``timelapse``/``manifest``/``diff`` reach
+Import structure note: ``trace``/``metrics``/``export``/``regions`` import
+nothing of the port beyond each other (``regions`` and ``routing`` import
+torch) and are imported eagerly — the engine and cluster layers, the
+models and the compiled steps import them at module load.  ``timelapse``/``manifest``/``diff`` reach
 back *into* those layers (analysis/cluster), so they are exposed lazily
 via module ``__getattr__`` to keep the import graph acyclic.
 """
@@ -43,6 +50,7 @@ from repro_torch.obs.metrics import (REGISTRY, Counter, Gauge, Histogram,
                                      MetricsRegistry, StageTimer)
 from repro_torch.obs.thresholds import DEFAULT_THRESHOLDS, Thresholds
 from repro_torch.obs.trace import SELF_PID, SpanRecord, SpanTracer, TRACER
+from repro_torch.obs.regions import region
 
 #: lazily-resolved symbols -> defining submodule (these import analysis /
 #: cluster, which import the engine, which imports repro_torch.obs.trace — an
@@ -91,7 +99,7 @@ def __dir__():
 
 
 __all__ = [
-    "TRACER", "SpanTracer", "SpanRecord", "SELF_PID",
+    "TRACER", "SpanTracer", "SpanRecord", "SELF_PID", "region",
     "REGISTRY", "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "StageTimer",
     "SHADES", "shade", "thread_meta", "duration_event", "counter_event",

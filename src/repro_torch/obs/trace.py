@@ -1,4 +1,5 @@
-"""Hierarchical span tracer: a flight recorder for the simulator itself.
+"""Hierarchical span tracer: a flight recorder for the simulator itself,
+and the port's host ranges on the device trace's clock.
 
 Every other trace in this repo is about *simulated* time (engine
 timelines, fleet slices); this one is about the **simulator's own
@@ -9,20 +10,37 @@ scattered ``--self-profile`` timers could not answer: a span records its
 *ancestry*, so "this replay happened inside that gang start inside that
 cluster run" survives into the export.
 
-Design constraints (this code sits on the engine/cluster hot paths):
+The same spans mark the port's own work on the card (``Server.generate``'s
+phases, a compiled step's dispatch, replay, first call and capture, the
+data pipeline's wait).  While a ``torch.profiler`` session records, a span
+also opens a profiler range named ``"repro." + name``, with its attributes
+as the range's keyword arguments (kept where the session records shapes):
+the range is one of the profiler's host events, on the clock its kernels
+are stamped with, so a reader of the device trace names what the host was
+doing around any kernel or idle gap.  The range is a function-scope
+``RecordFunction`` (the C side of ``record_function``): a user-scope one
+would also put a copy of itself on the device's timeline, spanning the
+kernels launched inside it, which a reader of device events would count as
+device work.
+
+Design constraints (this code sits on the engine/cluster hot paths and on
+the serving loop):
 
 * **disabled by default, near-free when disabled** — :meth:`SpanTracer.
-  span` returns a shared no-op context manager after a single attribute
-  check, and :meth:`SpanTracer.instant` returns immediately; the
-  perf gate in ``benchmarks/perf_core.py --trace-overhead`` holds the
-  enabled-mode tax under 10% and the disabled mode inside the normal
-  regression tolerance;
+  span` returns a shared no-op context manager after two attribute checks
+  (the tracer's switch and the profiler's), and :meth:`SpanTracer.instant`
+  returns immediately.  What holds the off cost on the card is the port's
+  benchmark (``port_bench/``): its timed runs record with no profiler and
+  the tracer off, and each end-to-end metric is held to its parent's;
 * **bounded memory** — records land in a ring buffer (default 65536
   spans): a million-job cluster run keeps the *most recent* window, the
   flight-recorder convention, and ``dropped`` counts what aged out;
 * **hierarchical without bookkeeping at the call site** — the tracer
   maintains a depth/parent stack; ``with TRACER.span("engine.replay")``
-  is the whole API.
+  is the whole API;
+* **one identifier a request** — inside ``with TRACER.request():`` every
+  span carries the request's ``call`` number (one ``Server.generate``
+  call's spans share one).
 
 Usage::
 
@@ -33,8 +51,9 @@ Usage::
     events = TRACER.to_chrome_events()      # compose into any trace file
 
 The module-level :data:`TRACER` is the instance every instrumented layer
-(engine, fastsched, cluster events, topology lowering, faults) uses; tests
-may build private :class:`SpanTracer` instances.
+(engine, fastsched, cluster events, topology lowering, faults, the port's
+server, compiled steps and data pipeline) uses; tests may build private
+:class:`SpanTracer` instances.
 """
 from __future__ import annotations
 
@@ -42,6 +61,9 @@ import itertools
 import time
 from collections import deque
 from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import torch
+import torch.autograd.profiler as _profiler
 
 #: chrome-trace pid reserved for simulator-self spans (simulated-time
 #: tracks use pid 0), so both compose into one trace file without clashes
@@ -89,10 +111,26 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    """Live span: measures on ``__exit__`` and records itself."""
+def profiler_range(name: str, attrs: Optional[Dict[str, Any]] = None):
+    """Open the profiler range ``"repro." + name`` (see the module
+    docstring) and return it; the caller closes it with ``__exit__``.
+    Attributes the profiler cannot keep (anything but a number, a string
+    or a bool) go as their ``str``."""
+    kw = {k: v if isinstance(v, (bool, int, float, str)) else str(v)
+          for k, v in (attrs or {}).items()}
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    rf = (fast("repro." + name, (), kw) if fast is not None
+          else _profiler.record_function("repro." + name))
+    rf.__enter__()
+    return rf
 
-    __slots__ = ("_tracer", "name", "attrs", "t0")
+
+class _Span:
+    """Live span: measures on ``__exit__`` and records itself into the ring
+    (tracer enabled), into the profiler's session (one recording), or
+    both."""
+
+    __slots__ = ("_tracer", "name", "attrs", "t0", "_ring", "_range")
 
     def __init__(self, tracer: "SpanTracer", name: str,
                  attrs: Optional[Dict[str, Any]]):
@@ -100,21 +138,50 @@ class _Span:
         self.name = name
         self.attrs = attrs
         self.t0 = 0.0
+        self._ring = False
+        self._range = None
 
     def __enter__(self) -> "_Span":
         tr = self._tracer
-        tr._stack.append(self.name)
-        self.t0 = time.perf_counter() - tr._epoch
+        if _profiler._is_profiler_enabled:
+            self._range = profiler_range(self.name, self.attrs)
+        self._ring = tr.enabled
+        if self._ring:
+            tr._stack.append(self.name)
+            self.t0 = time.perf_counter() - tr._epoch
         return self
 
     def __exit__(self, *exc) -> bool:
         tr = self._tracer
-        t1 = time.perf_counter() - tr._epoch
-        stack = tr._stack
-        stack.pop()
-        tr._record(SpanRecord(
-            self.name, self.t0, t1, len(stack),
-            stack[-1] if stack else None, next(tr._seq), self.attrs))
+        if self._ring:
+            t1 = time.perf_counter() - tr._epoch
+            stack = tr._stack
+            stack.pop()
+            tr._record(SpanRecord(
+                self.name, self.t0, t1, len(stack),
+                stack[-1] if stack else None, next(tr._seq), self.attrs))
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        return False
+
+
+class _Request:
+    """The extent of one request: its spans carry its ``call`` number."""
+
+    __slots__ = ("_tracer", "_outer")
+
+    def __init__(self, tracer: "SpanTracer"):
+        self._tracer = tracer
+        self._outer: Optional[int] = None
+
+    def __enter__(self) -> "_Request":
+        tr = self._tracer
+        self._outer = tr._call
+        tr._call = next(tr._calls)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._tracer._call = self._outer
         return False
 
 
@@ -131,16 +198,30 @@ class SpanTracer:
         self._stack: List[str] = []
         self._seq = itertools.count()
         self._recorded = 0
+        self._calls = itertools.count()
+        self._call: Optional[int] = None
 
     # -- recording ------------------------------------------------------
     def span(self, name: str, **attrs: Any):
-        """Context manager timing one span; no-op while disabled.
+        """Context manager timing one span; the shared no-op while the
+        tracer is disabled and no profiler records.
 
         Keyword arguments become the span's ``attrs`` payload (carried
-        into the chrome-trace ``args``)."""
-        if not self.enabled:
+        into the chrome-trace ``args`` and the profiler range's keyword
+        arguments), with the enclosing request's ``call`` number."""
+        if not self.enabled and not _profiler._is_profiler_enabled:
             return _NULL_SPAN
+        if self._call is not None:
+            attrs["call"] = self._call
         return _Span(self, name, attrs or None)
+
+    def request(self):
+        """Context manager for one request (a ``Server.generate`` call):
+        the spans opened inside it carry one ``call`` number, a new one at
+        each request; the shared no-op while nothing records."""
+        if not self.enabled and not _profiler._is_profiler_enabled:
+            return _NULL_SPAN
+        return _Request(self)
 
     def instant(self, name: str, **attrs: Any) -> None:
         """Record a zero-duration marker (FAIL/REPAIR events, gang kills)."""

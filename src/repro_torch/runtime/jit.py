@@ -52,17 +52,33 @@ A replay runs no Python, so the kernel wrappers' ``launches`` counters
 would not move: a graph keeps the launches its capture recorded (taken
 back off the counters: a capture launches nothing) and adds them to the
 counters at every replay.
+
+What a call does is traced (:mod:`repro_torch.obs`): the spans
+``jit.dispatch`` (the flatten, the signature, the input checks and copies,
+up to the launch) and ``jit.replay``, each with the step's name; the
+registry's ``jit_captures_total``, always.  A capture writes the region
+table of its graph (:func:`repro_torch.obs.regions.capture`), and launches
+the marker and counting kernels once after it, so that they load in
+set-up.  While a profiler records, a replay is bracketed by the markers
+that find its kernels in the device trace, and followed by the counts of
+the tensors its capture kept (:mod:`repro_torch.obs.routing`); with no
+profiler it launches the graph alone.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.profiler as _profiler
 from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from repro_torch.obs import regions, routing
+from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import TRACER
 
 #: held by a capture, and by any host thread while it puts work on the
 #: device beside the compiled steps
@@ -137,15 +153,25 @@ def _capture_stream(dev: torch.device):
 @dataclass
 class Graph:
     """One captured signature: the graph, the tensors it reads (``None``
-    where the input leaf is no tensor), its outputs, and the kernel
-    launches its capture recorded, by wrapper name."""
+    where the input leaf is no tensor), its outputs, the kernel launches
+    its capture recorded, by wrapper name, the compiled step's name and the
+    tensors its capture kept for the routing counts."""
     graph: Any
     inputs: List[Optional[torch.Tensor]]
     out: Any
     launches: Dict[str, int]
+    step: str = "step"
+    kept: List[Any] = field(default_factory=list)
 
     def replay(self) -> None:
-        self.graph.replay()
+        if _profiler._is_profiler_enabled:
+            regions.mark_begin()
+            self.graph.replay()
+            regions.mark_end()
+            if self.kept:
+                routing.count(self.step, self.kept)
+        else:
+            self.graph.replay()
         for f in _counted():
             f.launches += self.launches[f.__name__]
 
@@ -153,11 +179,13 @@ class Graph:
 class Jitted:
     """A compiled step (see the module docstring); ``graphs`` maps each
     signature captured so far to its :class:`Graph`, ``seen`` holds the
-    signatures whose first (eager) call has run."""
+    signatures whose first (eager) call has run; ``name`` labels its
+    spans, region tables and counts."""
 
     def __init__(self, fn: Callable, donate: Iterable[int] = (),
-                 pool: Optional[GraphPool] = None):
+                 pool: Optional[GraphPool] = None, name: str = "step"):
         self.fn = fn
+        self.name = name
         self.donate = tuple(sorted(set(donate)))
         self.pool = pool
         self.graphs: Dict[Any, Graph] = {}
@@ -165,27 +193,34 @@ class Jitted:
         self.last: Optional[Graph] = None
 
     def __call__(self, *args: Any) -> Any:
-        leaves, spec = tree_flatten(args)
-        devices = {x.device.type for x in leaves if isinstance(x, torch.Tensor)}
-        if _EAGER.get() or "cuda" not in devices:
-            return self.fn(*args)
-        if devices != {"cuda"}:
-            raise ValueError(f"a compiled step takes tensors all on cuda or all on "
-                             f"the cpu; got {sorted(devices)}")
-        key = (spec, tuple(_signature(x) for x in leaves))
-        g = self.graphs.get(key)
+        g = key = None
+        with TRACER.span("jit.dispatch", step=self.name):
+            leaves, spec = tree_flatten(args)
+            devices = {x.device.type for x in leaves if isinstance(x, torch.Tensor)}
+            eager = _EAGER.get() or "cuda" not in devices
+            if not eager:
+                if devices != {"cuda"}:
+                    raise ValueError(f"a compiled step takes tensors all on cuda or all "
+                                     f"on the cpu; got {sorted(devices)}")
+                key = (spec, tuple(_signature(x) for x in leaves))
+                g = self.graphs.get(key)
+                if g is not None:
+                    with torch.no_grad():
+                        for mine, x in zip(g.inputs, leaves):
+                            if mine is not None and not _same(mine, x):
+                                mine.copy_(x)
+        if eager:
+            with regions.step(self.name):
+                return self.fn(*args)
         if g is None and key not in self.seen:
             out = self._first_call(args)
             self.seen.add(key)
             return out
         if g is None:
+            REGISTRY.counter("jit_captures_total").inc()
             g = self.graphs[key] = self._capture(args)
-        else:
-            with torch.no_grad():
-                for mine, x in zip(g.inputs, leaves):
-                    if mine is not None and not _same(mine, x):
-                        mine.copy_(x)
-        g.replay()
+        with TRACER.span("jit.replay", step=self.name):
+            g.replay()
         self.last = g
         return g.out
 
@@ -197,7 +232,7 @@ class Jitted:
         dev = _device(args)
         side = _capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), regions.step(self.name):
             out = self.fn(*args)
         torch.cuda.current_stream(dev).wait_stream(side)
         return out
@@ -209,16 +244,21 @@ class Jitted:
         before = [f.launches for f in counters]
         graph = torch.cuda.CUDAGraph()
         pool = None if self.pool is None else self.pool.handle()
+        stream = _capture_stream(dev)
         with CAPTURE_LOCK, torch.cuda.device(dev), torch.cuda.graph(
-                graph, pool=pool, stream=_capture_stream(dev),
-                capture_error_mode="thread_local"):
+                graph, pool=pool, stream=stream, capture_error_mode="thread_local"), \
+                regions.capture(self.name, stream) as cap:
             out = self._write_donated(args, self.fn(*args))
+            cap.finish()
+        regions.warm()
+        if cap.kept:
+            routing.warm(cap.kept)
         launches = {}
         for f, n in zip(counters, before):
             launches[f.__name__] = f.launches - n
             f.launches = n
         return Graph(graph, [x if isinstance(x, torch.Tensor) else None for x in leaves],
-                     out, launches)
+                     out, launches, self.name, cap.kept)
 
     def _write_donated(self, args: Sequence[Any], out: Any) -> Any:
         """``out`` with the part of each donated argument's tree structure
@@ -253,10 +293,11 @@ class Jitted:
         return type(out)(*items) if hasattr(out, "_fields") else type(out)(items)
 
 
-def jit(fn: Callable, donate: Iterable[int] = (), pool: Optional[GraphPool] = None
-        ) -> Jitted:
+def jit(fn: Callable, donate: Iterable[int] = (), pool: Optional[GraphPool] = None,
+        name: str = "step") -> Jitted:
     """``fn`` compiled: captured into a CUDA graph per input signature and
     replayed on CUDA tensors, ``fn`` itself on CPU tensors (see the module
     docstring).  ``donate``: the indices of the arguments the caller gives
-    up; ``pool``: a :class:`GraphPool` shared with other compiled steps."""
-    return Jitted(fn, donate, pool)
+    up; ``pool``: a :class:`GraphPool` shared with other compiled steps;
+    ``name``: the label of its spans, region tables and counts."""
+    return Jitted(fn, donate, pool, name)

@@ -17,6 +17,14 @@ once, and the decode graph reads it in place and advances it.  The
 prefill's cache (an output of its graph) is copied before the decode
 graph, in the same pool, replays; the decode's logits are sampled before
 the next replay.
+
+A call's phases are spans (:data:`repro_torch.obs.TRACER`), all carrying
+the call's number: ``server.prefill`` (the prefill step's call),
+``server.cache_copy``, ``server.decode_step`` (each decode step's call),
+``server.sample`` and ``server.token_read`` (a token's read to the host).
+The routing counts the steps made while a profiler recorded
+(:mod:`repro_torch.obs.routing`) reach the registry at the sync a call
+ends with.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import torch.nn.functional as F
 from torch.utils._pytree import tree_leaves, tree_map_only
 
 from repro_torch.config import RunConfig
+from repro_torch.obs import routing
+from repro_torch.obs.trace import TRACER
 from repro_torch.runtime.jit import GraphPool
 from repro_torch.runtime.steps import decode_bundle, prefill_bundle
 
@@ -116,23 +126,36 @@ class Server:
                  seed: int = 0) -> np.ndarray:
         """Prefill the prompt batch, then decode up to max_new_tokens.
         Returns the (b, n) int32 token ids."""
+        with TRACER.request():
+            return self._generate(batch, max_new_tokens, seed)
+
+    def _generate(self, batch: Mapping[str, torch.Tensor], max_new_tokens: int,
+                  seed: int) -> np.ndarray:
         t0 = time.perf_counter()
         # the prefill's graph reads its prompts where the first call's lay:
         # hand it tensors of the server's own, not the caller's
-        logits, cache = self._prefill(self.params, {k: v.clone() for k, v in batch.items()})
-        cache = self._decode_cache(cache, max_new_tokens)
+        with TRACER.span("server.prefill"):
+            logits, cache = self._prefill(self.params,
+                                          {k: v.clone() for k, v in batch.items()})
+        with TRACER.span("server.cache_copy"):
+            cache = self._decode_cache(cache, max_new_tokens)
         self._sync()
         self.stats.prefill_s += time.perf_counter() - t0
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        tok = self._sample(logits, gen)
-        out = [tok.cpu().numpy()]
+        with TRACER.span("server.sample"):
+            tok = self._sample(logits, gen)
+        with TRACER.span("server.token_read"):
+            out = [tok.cpu().numpy()]
         done = np.zeros(tok.shape[0], bool)
         t0 = time.perf_counter()
         for _ in range(max_new_tokens - 1):
-            logits, cache = self._decode(self.params, cache, {"token": tok[:, None]})
-            tok = self._sample(logits, gen)
-            arr = tok.cpu().numpy()
+            with TRACER.span("server.decode_step"):
+                logits, cache = self._decode(self.params, cache, {"token": tok[:, None]})
+            with TRACER.span("server.sample"):
+                tok = self._sample(logits, gen)
+            with TRACER.span("server.token_read"):
+                arr = tok.cpu().numpy()
             done |= arr == self.eos
             out.append(arr)
             self.stats.tokens_out += int((~done).sum())
@@ -140,4 +163,5 @@ class Server:
                 break
         self._sync()
         self.stats.decode_s += time.perf_counter() - t0
+        routing.flush()
         return np.stack(out, axis=1).astype(np.int32)

@@ -39,6 +39,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (axes_to_pspec, distribute, even_placements,
                                               logical_rules, use_rules, zip_axes)
 from repro_torch.models import build_model
+from repro_torch.obs import region
 from repro_torch.optim import (TrainState, abstract_state, adamw_update, init_state,
                                state_axes, tree_leaves, tree_map, warmup_cosine)
 from repro_torch.runtime.jit import GraphPool, Jitted, jit
@@ -49,14 +50,17 @@ class StepBundle:
     """A step function, its abstract inputs (``meta`` tensors: global
     shapes and dtypes, no storage) and, on a mesh, the layout of its inputs
     and outputs: trees of ``(mesh, placements)`` pairs (the reference's
-    ``NamedSharding`` trees), the metrics replicated; and the arguments
-    the step's caller gives up (the reference's ``donate_argnums``)."""
+    ``NamedSharding`` trees), the metrics replicated; the arguments the
+    step's caller gives up (the reference's ``donate_argnums``); and the
+    step's kind ("train", "prefill", "decode"), the label of its compiled
+    form's spans, region tables and counts."""
     fn: Callable
     abstract_inputs: Tuple[Any, ...]
     in_shardings: Optional[Tuple[Any, ...]] = None
     out_shardings: Optional[Any] = None
     mesh: Any = None
     donate_argnums: Tuple[int, ...] = ()
+    name: str = "step"
 
     def lower(self, name: str = "step", device: Any = None):
         """The step traced whole from its abstract inputs (fake tensors on
@@ -70,7 +74,7 @@ class StepBundle:
         graph per input signature on the card, the donated arguments
         written over in place; ``pool`` shares a graph pool with other
         compiled steps."""
-        return jit(self.fn, self.donate_argnums, pool)
+        return jit(self.fn, self.donate_argnums, pool, self.name)
 
 
 def run_rules(run_cfg: RunConfig, model):
@@ -227,7 +231,8 @@ def train_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
             del micro
             metrics = {k: torch.mean(torch.stack([m[k] for m in runs]), dim=0)
                        for k in runs[0]}
-        state, opt_metrics = adamw_update(state, grads, run_cfg.train, lr_fn)
+        with region("optimizer"):
+            state, opt_metrics = adamw_update(state, grads, run_cfg.train, lr_fn)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
@@ -243,7 +248,7 @@ def train_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
         in_sh = (state_sh, _layout(batch_specs, batch_axes, rules, mesh))
         out_sh = (state_sh, None)
     return StepBundle(_ambient(train_step, rules, mesh), (abstract, batch_specs),
-                      in_sh, out_sh, mesh, donate_argnums=(0,))
+                      in_sh, out_sh, mesh, donate_argnums=(0,), name="train")
 
 
 def init_train_state(run_cfg: RunConfig, seed: int = 0,
@@ -307,7 +312,7 @@ def prefill_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
         logits = _logits_spec(run_cfg, params_specs)
         out_sh = (_layout(logits, ("batch", None, "vocab"), rules, mesh),
                   _layout(cache_specs, cache_axes, rules, mesh))
-    return StepBundle(fn, (params_specs, batch_specs), in_sh, out_sh, mesh)
+    return StepBundle(fn, (params_specs, batch_specs), in_sh, out_sh, mesh, name="prefill")
 
 
 def decode_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
@@ -328,7 +333,7 @@ def decode_bundle(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
         logits = _logits_spec(run_cfg, params_specs)
         out_sh = (_layout(logits, ("batch", None, "vocab"), rules, mesh), cache_sh)
     return StepBundle(fn, (params_specs, cache_specs, tok_specs), in_sh, out_sh, mesh,
-                      donate_argnums=(1,))
+                      donate_argnums=(1,), name="decode")
 
 
 def bundle_for(run_cfg: RunConfig, mesh: Any = None) -> StepBundle:
