@@ -5,7 +5,8 @@
 
 Builds the port's hand-written kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card (flash attention at head
-dims 16 to 256), then drives the port's three paths, each with every
+dims 16 to 256; its 16-bit backward against autograd through
+``attention_ref`` at d 16 to 128, phase 5b), then drives the port's three paths, each with every
 kernel's launch count set to 0 just before and read just after:
 
 * LeNet — ``repro_torch.lenet_repro.run``, the paper's experiments: train
@@ -81,7 +82,8 @@ kernel's launch count set to 0 just before and read just after:
   under ``disable_jit``, the state and metrics bit for bit with the rate
   moving; qwen1.5-4b FULL graphed through the ``DataPipeline`` against
   phase 15's eager steps (loss, grad norm and rate a step), its memory, warm
-  step and busy share, and the 80 flash launches inside its graph.
+  step and busy share, and the 80 flash launches and 40 flash backward
+  calls inside its graph.
 
 Then it times each kernel (fp32, bf16 and fp16), its plain version and the
 one PyTorch library call that computes the same function, beside the card's
@@ -206,10 +208,17 @@ def build_phase():
     # (UTMALDG) in every bf16 and fp16 flash instance, cp.async (LDGSTS) in
     # tiled_matmul
     counts = sass_counts("flash_attention", "attn_wgmma_kernel", ("HGMMA", "UTMALDG"))
-    check(len(counts) == 12, f"expected 12 wgmma flash instances (bf16 and fp16 at d 16, "
-                             f"32, 64, 112, 128, 256), found {len(counts)}")
+    check(len(counts) == 22, f"expected 22 wgmma flash instances (bf16 and fp16 at d 16, "
+                             f"32, 64, 112, 128, 256, and with the log-sum-exp store at "
+                             f"all but 256), found {len(counts)}")
     check(all(c[op] > 0 for c in counts.values() for op in c),
           "a 16-bit flash instance has no HGMMA or no UTMALDG")
+    # the backward's two product kernels, bf16 and fp16 at d 16, 32, 64, 112, 128
+    for func in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+        counts = sass_counts("flash_attention_bwd", func, ("HGMMA", "UTMALDG"))
+        check(len(counts) == 10, f"expected 10 {func} instances, found {len(counts)}")
+        check(all(c[op] > 0 for c in counts.values() for op in c),
+              f"a {func} instance has no HGMMA or no UTMALDG")
     sass_counts("tiled_matmul", "", ("LDGSTS",))
 
 
@@ -541,6 +550,112 @@ def flash_phase():
         check(ok and first < sq, f"the op's rows without a key disagree with attention_ref "
                                  f"at s={sq} t={t} window {window}")
     return slice_err
+
+
+# the backward kernel against autograd through attention_ref in fp32, of
+# each gradient's largest magnitude: four ulps of the 16-bit type (P and dS
+# are rounded to it before their products, as the forward rounds P, and the
+# gradients once; see tests/test_torch_cuda.py's BWD_TOL)
+BWD_TOL = {"bf16": 4 * 2.0 ** -8, "fp16": 4 * 2.0 ** -11}
+
+
+def flash_bwd_phase():
+    """The flash op's 16-bit backward (``flash_attention_bwd``: three
+    launches, no atomics) against autograd through ``attention_ref`` in
+    fp32: a qwen1.5-4b training layer at b 1 (h 20, s 4096, d 128, causal),
+    GQA group 8, a window, the softcap, ragged s and t, rows that see no
+    key, and every compiled head dim, in bf16 and fp16; two calls bit for
+    bit; then the time of a call at the training cell's shape (b 6) beside
+    its bound, the plain version (the recompute through ``attention_ref``)
+    and SDPA's backward (the library yardstick)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, attention_ref,
+                                                     flash_attention, flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ops import recompute_backward
+    phase("5b. flash_attention's backward kernel against autograd through attention_ref")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [  # label, (b, h, kv, s, t, d), causal, window, softcap
+        ("a qwen1.5-4b layer at b 1", (1, 20, 20, 4096, 4096, 128), True, 0, 0.0),
+        ("GQA group 8", (1, 32, 4, 1024, 1024, 128), True, 0, 0.0),
+        ("window 256", (2, 8, 8, 1000, 1000, 128), True, 256, 0.0),
+        ("softcap 30 non-causal s=300 t=455", (1, 8, 2, 300, 455, 64), False, 0, 30.0),
+        ("ragged s=777 t=600 window 100 softcap 20", (1, 8, 4, 777, 600, 112), True, 100, 20.0),
+        ("rows without a key s=300 t=100 window 64", (2, 8, 2, 300, 100, 64), True, 64, 0.0),
+    ] + [(f"d{d} causal ragged s=t=1000", (2, 8, 2, 1000, 1000, d), True, 0, 0.0)
+         for d in BWD_HEAD_DIMS]
+    worst = 0.0   # the largest absolute error
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
+        for label, (b, h, kv, sq, t, d), causal, window, softcap in cases:
+            q, k, v = (torch.randn(b, n, h_, d, generator=gen, device="cuda").to(dtype)
+                       .transpose(1, 2).requires_grad_()
+                       for n, h_ in ((sq, h), (t, kv), (t, kv)))
+            g = torch.randn(b, h, sq, d, generator=gen, device="cuda").to(dtype)
+            mask = dict(causal=causal, window=window, softcap=softcap)
+            before = flash_attention_bwd.launches
+            mine = torch.autograd.grad(flash_attention(q, k, v, **mask), (q, k, v), g)
+            torch.cuda.synchronize()
+            refs = [x.detach().float().requires_grad_() for x in (q, k, v)]
+            want = torch.autograd.grad(attention_ref(*refs, **mask), refs, g.float())
+            rel = [float((a.float() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                   for a, w in zip(mine, want)]
+            plain = max(float((w.to(dtype).float() - w).abs().max() / w.abs().max()
+                              .clamp_min(1e-30)) for w in want)
+            worst = max([worst] + [float((a.float() - w).abs().max())
+                                   for a, w in zip(mine, want)])
+            print(f"  {name} {label} (b{b} h{h} kv{kv} s{sq} t{t} d{d}): dq {rel[0]:.2e}, "
+                  f"dk {rel[1]:.2e}, dv {rel[2]:.2e} of their max |ref| (tol "
+                  f"{BWD_TOL[name]:.2e}; the fp32 gradients rounded alone: {plain:.1e})")
+            check(flash_attention_bwd.launches == before + 1,
+                  f"the {name} backward of {label} did not run the kernel")
+            check(max(rel) <= BWD_TOL[name] and all(a.dtype == dtype for a in mine),
+                  f"the backward kernel disagrees with attention_ref on {name} {label}")
+            del q, k, v, g, mine, refs, want
+    # two calls, the same bits; then the training cell's shape
+    b, h, s, d = TRAIN_BATCH, 20, TRAIN_SEQ, 128
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  .transpose(1, 2) for _ in range(4))
+    g = g.contiguous()
+    lse = torch.empty(b, h, s, device="cuda")
+    out = flash_attention_fwd(q, k, v, causal=True, lse=lse)
+    first = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    second = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    print(f"  two calls at b{b} h{h} s{s} d{d} bf16 causal, bit for bit: {same}")
+    check(same, "two backward calls on the same inputs differ in their bits")
+    del first, second
+    kern = lambda: flash_attention_bwd(q, k, v, out, lse, g, causal=True)  # noqa: E731
+    t_k = _time_ms(kern, reps=10)
+    t_d = _device_ms(kern, match="flash_bwd_")
+    t_plain = _time_ms(lambda: recompute_backward(q, k, v, g, causal=True, window=0,
+                                                  softcap=0.0), reps=2, warmup=1)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    t_lib = _time_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), g, retain_graph=True),
+                     reps=10)
+    flops = 2 * _attn_flops(b, h, s, s, d, True, 0)
+    nbytes = 2 * 2 * (2 * b * h * s * d + 2 * b * h * s * d)
+    bound, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"  backward at the training cell's shape (b{b} h{h} s=t={s} d{d} bf16 causal): "
+          f"kernel {t_k:.3f} ms (CUDA events), device {_fmt_ms(t_d)}; bound {bound:.3f} ms "
+          f"({bound_by}: 2 x {flops / 2:.3e} operations, no recompute); plain version "
+          f"(recompute through attention_ref) {t_plain:.2f} ms; SDPA's backward "
+          f"{t_lib:.3f} ms; {CARD}")
+    # what the log-sum-exp store costs the forward: the instance with it
+    # (training) against the one without (serving), alternated
+    fwd = [lambda: flash_attention_fwd(q, k, v, causal=True),
+           lambda: flash_attention_fwd(q, k, v, causal=True, lse=lse)]
+    t_fwd = [[_time_ms(f, reps=10) for f in fwd] for _ in range(3)]
+    print("  forward at the same shape, without / with the log-sum-exp store: "
+          + ", ".join(f"{a:.3f} / {b_:.3f} ms" for a, b_ in t_fwd) + " (CUDA events)")
+    del q, k, v, g, out, lse, qs, ks, vs, o_sdpa
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "none (the reference differentiates attention_ref)",
+            "max_abs_err": worst, "ms": t_k, "device_ms": t_d, "plain_ms": t_plain,
+            "library_ms": t_lib, "bound_ms": bound, "bound_by": bound_by,
+            "fwd_ms_without_with_lse": t_fwd}
 
 
 def main_path_phase():
@@ -1629,7 +1744,7 @@ def train_phase():
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.data.synthetic import batches_for
     from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
-                                                     flash_attention_fwd)
+                                                     flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.tiled_matmul import tiled_matmul
     from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
     from repro_torch.optim import tree_leaves
@@ -1657,7 +1772,8 @@ def train_phase():
     rc = _train_cfg(cfg, batch, **train_cfg)
     step_fn = train_bundle(rc).fn
     master0, params0 = _slots(state.master), _slots(state.params)
-    for kern in (tiled_matmul, winograd_conv, winograd_tiles, flash_attention_fwd):
+    for kern in (tiled_matmul, winograd_conv, winograd_tiles, flash_attention_fwd,
+                 flash_attention_bwd):
         kern.launches = 0
     data = DataPipeline(batches_for(cfg, rc.shape, seed=0), "cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -1688,7 +1804,8 @@ def train_phase():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {"tiled_matmul": tiled_matmul.launches, "winograd_conv": winograd_conv.launches,
                 "winograd_tiles": winograd_tiles.launches,
-                "flash_attention": flash_attention_fwd.launches}
+                "flash_attention": flash_attention_fwd.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
     warm_s = times[1]
     tok_s = batch * TRAIN_SEQ / warm_s
     # the profiled step's host window, from its launch to its last kernel
@@ -1708,6 +1825,9 @@ def train_phase():
     check(launches["flash_attention"] == 2 * cfg.num_layers * TRAIN_STEPS,
           f"flash launched {launches['flash_attention']} times in {TRAIN_STEPS} steps, "
           f"expected {2 * cfg.num_layers} a step (a forward and a recompute a layer)")
+    check(launches["flash_attention_bwd"] == cfg.num_layers * TRAIN_STEPS,
+          f"the flash backward ran {launches['flash_attention_bwd']} times in {TRAIN_STEPS} "
+          f"steps, expected {cfg.num_layers} a step")
     moved = [sum(bool((a != b).any()) for a, b in zip(before, _slots(after)))
              for before, after in ((master0, state.master), (params0, state.params))]
     print(f"  moved after {TRAIN_STEPS} steps: {moved[0]} of {len(master0)} master slots, "
@@ -1715,8 +1835,8 @@ def train_phase():
     check(moved[0] == len(master0) and moved[1] == len(params0),
           "a parameter did not move")
 
-    # attention's backward alone: the flash op's recompute through
-    # attention_ref and its gradients, at one layer's shape, times the layers
+    # attention's backward alone: the flash op's backward kernel, at one
+    # layer's shape, times the layers
     del state, master0, params0
     gc.collect()
     torch.cuda.empty_cache()
@@ -1744,8 +1864,8 @@ def train_phase():
     bwd_ms = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
                       reps=3, warmup=1)
     bwd_step_ms = bwd_ms * cfg.num_layers
-    print(f"  attention's backward (recompute through attention_ref, fp32 scores, in "
-          f"pieces of 8 heads): {bwd_ms:.2f} ms a layer at q {tuple(q.shape)}, "
+    print(f"  attention's backward (the flash op's backward kernel): "
+          f"{bwd_ms:.2f} ms a layer at q {tuple(q.shape)}, "
           f"{bwd_step_ms:.1f} ms a step ({cfg.num_layers} layers), "
           f"{100 * bwd_step_ms / (warm_s * 1e3):.1f}% of the warm step")
     del q, k, v, out, g
@@ -1756,18 +1876,19 @@ def train_phase():
             "metrics": metrics}
 
 
-def _train_dot_flops(cfg, b, s):
+def _train_dot_flops(cfg, b, s, attention_products=10):
     """The products of one captured train step (see tests/test_torch_train.py):
     per layer the projections 4 times (forward, recompute, two gradients)
-    less the down projection's recompute, 10 attention products, and the
-    head 4 times."""
+    less the down projection's recompute, 10 attention products (9 where the
+    backward is the kernel's op), and the head 4 times."""
     from repro_torch.models.layers import pad_vocab
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     n = b * s
     proj = 2 * n * d * (h + 2 * kv) * hd + 2 * n * h * hd * d + 3 * 2 * n * d * cfg.d_ff
     down = 2 * n * cfg.d_ff * d
     att = 2 * b * h * s * s * hd
-    return cfg.num_layers * (4 * proj - down + 10 * att) + 4 * 2 * n * d * pad_vocab(cfg.vocab_size)
+    return (cfg.num_layers * (4 * proj - down + attention_products * att)
+            + 4 * 2 * n * d * pad_vocab(cfg.vocab_size))
 
 
 def train_sim_phase(train):
@@ -1791,9 +1912,13 @@ def train_sim_phase(train):
     cap_s = time.perf_counter() - t0
     m = cap.module
     dot_flops = sum(sc * m.op_flops(c, o)["mxu"] for o, c, sc in m.walk_entry())
-    want = _train_dot_flops(cfg, b, TRAIN_SEQ)
-    n_flash = sum(n.target is torch.ops.repro_torch.flash_attention.default
+    # the backward kernel's op emits the reference's vjp less its recompute
+    # of P V: 9 attention products a layer
+    want = _train_dot_flops(cfg, b, TRAIN_SEQ, attention_products=9)
+    rt = torch.ops.repro_torch
+    n_flash = sum(n.target in (rt.flash_attention.default, rt.flash_attention_lse.default)
                   for n in cap.graph.graph.nodes)
+    n_bwd = sum(n.target is rt.flash_attention_bwd.default for n in cap.graph.graph.nodes)
     t0 = time.perf_counter()
     rep = Simulator(hw=H100).performance(cap)
     sim_s = time.perf_counter() - t0
@@ -1808,6 +1933,7 @@ def train_sim_phase(train):
     check(dot_flops == want, f"the train capture counts {dot_flops} dot FLOPs, expected {want}")
     check(n_flash == 2 * cfg.num_layers, f"{n_flash} flash nodes, expected "
                                          f"{2 * cfg.num_layers}")
+    check(n_bwd == cfg.num_layers, f"{n_bwd} flash backward nodes, expected {cfg.num_layers}")
     check(secs > 0 and math.isfinite(secs), f"bad simulated train step {secs}")
     return {"sim_ms": secs * 1e3, "capture_s": cap_s, "ops": len(m.comp(m.entry).ops)}
 
@@ -3334,6 +3460,7 @@ def train_jit_phase(train):
     (first_gb, first_res), (warm_gb, warm_res) = (
         [max(p[j] for p in part) / 1e9 for j in (0, 1)] for part in (peaks[:2], peaks[2:]))
     flash_in_graph = step.last.launches["flash_attention_fwd"]
+    bwd_in_graph = step.last.launches["flash_attention_bwd"]
     eager_m = train["metrics"]
     keys = ("loss", "grad_norm", "lr")
     bit = all(g[k] == e[k] for g, e in zip(metrics, eager_m) for k in keys)
@@ -3353,7 +3480,8 @@ def train_jit_phase(train):
           + ("not measured" if share is None else
              f"{100 * share:.1f}% of the profiled replay beside phase 15's "
              f"{100 * train['busy_ms'] / train['profiled_ms']:.1f}%") + f"; {CARD}")
-    print(f"  flash launches inside the train graph: {flash_in_graph}")
+    print(f"  flash launches inside the train graph: {flash_in_graph} forward, "
+          f"{bwd_in_graph} backward calls")
     check(len(metrics) == len(eager_m) and bit,
           f"the graphed {TRAIN_ARCH} FULL steps differ from phase 15's eager ones: {gaps}")
     check(max(first_res, warm_res) * 1e9 < card,
@@ -3361,11 +3489,15 @@ def train_jit_phase(train):
     check(flash_in_graph == 2 * cfg.num_layers,
           f"the train graph holds {flash_in_graph} flash launches, expected "
           f"{2 * cfg.num_layers}")
+    check(bwd_in_graph == cfg.num_layers,
+          f"the train graph holds {bwd_in_graph} flash backward calls, expected "
+          f"{cfg.num_layers}")
     out["full"] = {"batch": batch, "bit_equal": bit, "gaps": gaps, "peak_first_gb": first_gb,
                    "peak_warm_gb": warm_gb, "reserved_first_gb": first_res,
                    "reserved_warm_gb": warm_res, "warm_ms": warm_ms, "tok_s": tok_s,
                    "busy_ms": busy_ms, "profiled_ms": times[-1] * 1e3,
-                   "flash_in_graph": flash_in_graph, "step_s": times}
+                   "flash_in_graph": flash_in_graph, "bwd_in_graph": bwd_in_graph,
+                   "step_s": times}
     del state, step, data, m, box
     gc.collect()
     torch.cuda.empty_cache()
@@ -3385,6 +3517,7 @@ def main() -> int:
         mm_err = matmul_phase()
         wino_errs = winograd_phase()
         flash_err = flash_phase()
+        flash_bwd = flash_bwd_phase()
         launches, pps, lenet = main_path_phase()
         kernels = timing_phase(launches, pps, mm_err, wino_errs)
         step = step_phase()
@@ -3427,6 +3560,10 @@ def main() -> int:
                                   f"({MESH_STEPS} steps, batch {meshed['batch']}, local_map)"] = \
             meshed["flash_launches"]
         flash["attention_backward_ms_per_train_step"] = train["attn_bwd_ms_step"]
+        flash_bwd["launches"] = train["launches"]["flash_attention_bwd"]
+        flash_bwd["launches_in_graph"] = {
+            f"one {TRAIN_ARCH} FULL train step": train["graphed"]["full"]["bwd_in_graph"]}
+        kernels.append(flash_bwd)
         flash["launches_in_graph"] = {
             f"one {SERVE_ARCH} FULL prefill": graphs["flash_in_prefill_graph"],
             f"one {TRAIN_ARCH} FULL train step": train["graphed"]["full"]["flash_in_graph"]}

@@ -425,32 +425,79 @@ def _conv3x3_winograd(em: _Emitter, node: torch.fx.Node) -> None:
     em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "bitcast", [y])
 
 
-def _flash_attention(em: _Emitter, node: torch.fx.Node) -> None:
+_GROUPED = "lhs_batch_dims={0,1}, rhs_batch_dims={0,1}"
+
+
+def _grouped_dot(em: _Emitter, name: str, dtype: torch.dtype, shape, lhs: str, rhs: str,
+                 lc: int, rc: int) -> str:
+    """A product batched over (b, kv): attention's products under GQA."""
+    return em.inst(name, _shape_type(dtype, shape), "dot", [lhs, rhs],
+                   f"{_GROUPED}, lhs_contracting_dims={{{lc}}}, "
+                   f"rhs_contracting_dims={{{rc}}}")
+
+
+def _flash_products(em: _Emitter, node: torch.fx.Node, out_dtype: torch.dtype):
     """q.k^T batched over (b, kv), the softmax's exp, p.v: the FLOPs of the
     reference's two grouped ``sdpa`` einsums (the full s x t score matrix:
     the reference computes the masked half too).
 
     Under GQA q's h = kv * g heads are viewed as (b, kv, g * s, d), so both
-    products batch over the kv heads that k and v really have."""
+    products batch over the kv heads that k and v really have.  Returns the
+    names of the probabilities and of the grouped output."""
     q, k, v = node.args[:3]
     qv, kv_ = em.val(q), em.val(k)
     b, h, s, d = qv.shape
     kvh, t = kv_.shape[1], kv_.shape[2]
     gs = h // kvh * s
-    batch = "lhs_batch_dims={0,1}, rhs_batch_dims={0,1}"
     qg = em.inst(f"{node.name}.q", _shape_type(qv.dtype, (b, kvh, gs, d)),
                  "bitcast", [em.names[q]])
-    scores = em.inst(f"{node.name}.s", _shape_type(torch.float32, (b, kvh, gs, t)),
-                     "dot", [qg, em.names[k]],
-                     f"{batch}, lhs_contracting_dims={{3}}, "
-                     "rhs_contracting_dims={3}")
+    scores = _grouped_dot(em, f"{node.name}.s", torch.float32, (b, kvh, gs, t), qg,
+                          em.names[k], 3, 3)
     p = em.inst(f"{node.name}.p", _shape_type(torch.float32, (b, kvh, gs, t)),
                 "exponential", [scores])
-    out = em.inst(f"{node.name}.o", _shape_type(em.val(node).dtype, (b, kvh, gs, d)),
-                  "dot", [p, em.names[v]],
-                  f"{batch}, lhs_contracting_dims={{3}}, "
-                  "rhs_contracting_dims={2}")
+    out = _grouped_dot(em, f"{node.name}.o", out_dtype, (b, kvh, gs, d), p, em.names[v],
+                       3, 2)
+    return p, out
+
+
+def _flash_attention(em: _Emitter, node: torch.fx.Node) -> None:
+    """The flash op as :func:`_flash_products` emits it."""
+    _, out = _flash_products(em, node, em.val(node).dtype)
     em.names[node] = em.inst(node.name, hlo_type(em.val(node)), "bitcast", [out])
+
+
+def _flash_attention_lse(em: _Emitter, node: torch.fx.Node) -> None:
+    """The forward as :func:`_flash_attention` emits it, and the rows'
+    log-sum-exp as a reduce of the probabilities: two parts."""
+    out_v, lse_v = em.val(node)
+    p, out = _flash_products(em, node, out_v.dtype)
+    em.parts[node] = {
+        0: em.inst(f"{node.name}.out", hlo_type(out_v), "bitcast", [out]),
+        1: em.inst(f"{node.name}.lse", hlo_type(lse_v), "reduce", [p])}
+
+
+def _flash_attention_bwd(em: _Emitter, node: torch.fx.Node) -> None:
+    """The gradients of the flash op as the reference's vjp of
+    ``attention_ref`` takes them, over the full s x t score matrix: the
+    scores recomputed and exponentiated, dP = dO V^T, dS (an elementwise
+    product), dV = P^T dO, dQ = dS K and dK = dS^T Q, batched over the kv
+    heads as in :func:`_flash_products`.  Three parts."""
+    q, k, v, _, _, dout = node.args[:6]
+    dq_v, dk_v, dv_v = em.val(node)
+    b, h, s, d = em.val(q).shape
+    kvh, t = em.val(k).shape[1], em.val(k).shape[2]
+    gs = h // kvh * s
+    f32, n = torch.float32, node.name
+    qg, gg = (em.inst(f"{n}.{name}", _shape_type(em.val(x).dtype, (b, kvh, gs, d)),
+                      "bitcast", [em.names[x]]) for name, x in (("q", q), ("g", dout)))
+    scores = _grouped_dot(em, f"{n}.s", f32, (b, kvh, gs, t), qg, em.names[k], 3, 3)
+    p = em.inst(f"{n}.p", _shape_type(f32, (b, kvh, gs, t)), "exponential", [scores])
+    dp = _grouped_dot(em, f"{n}.dp", f32, (b, kvh, gs, t), gg, em.names[v], 3, 3)
+    ds = em.inst(f"{n}.ds", _shape_type(f32, (b, kvh, gs, t)), "multiply", [p, dp])
+    dv = _grouped_dot(em, f"{n}.dv", dv_v.dtype, (b, kvh, t, d), p, gg, 2, 2)
+    dq = _grouped_dot(em, f"{n}.dqg", dq_v.dtype, (b, kvh, gs, d), ds, em.names[k], 3, 2)
+    dk = _grouped_dot(em, f"{n}.dk", dk_v.dtype, (b, kvh, t, d), ds, qg, 2, 2)
+    em.parts[node] = {0: em.inst(f"{n}.dq", hlo_type(dq_v), "bitcast", [dq]), 1: dk, 2: dv}
 
 
 def _group_ranks(group: Any) -> List[int]:
@@ -524,6 +571,8 @@ def _register_kernel_ops() -> None:
     _SPECIAL[torch.ops.repro_torch.winograd_tiles.default] = _winograd
     _SPECIAL[torch.ops.repro_torch.conv3x3_winograd.default] = _conv3x3_winograd
     _SPECIAL[torch.ops.repro_torch.flash_attention.default] = _flash_attention
+    _SPECIAL[torch.ops.repro_torch.flash_attention_lse.default] = _flash_attention_lse
+    _SPECIAL[torch.ops.repro_torch.flash_attention_bwd.default] = _flash_attention_bwd
     import repro_torch.distributed.pipeline  # noqa: F401  (the ring permute op)
     _SPECIAL[torch.ops.repro_torch.ring_permute.default] = _ring_permute
     c10d = torch.ops._c10d_functional

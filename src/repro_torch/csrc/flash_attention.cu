@@ -15,7 +15,8 @@
 // Two hand kernels, chosen by dtype in the C entry point (not a fallback:
 // each dtype has exactly one):
 //
-// * bf16 and fp16 (`attn_wgmma_kernel`, one instance each): the two
+// * bf16 and fp16 (`attn_wgmma_kernel`, one instance each, and one with the
+//   log-sum-exp store at each head dim but 256): the two
 //   products on the tensor cores with
 //   `wgmma`, K/V fed by TMA.  One CTA of two warpgroups per (128 query rows,
 //   head, batch); each warpgroup owns 64 rows.  Q (128 rows) and a 2-stage
@@ -41,7 +42,13 @@
 //   MN-major B operand.  Rounding p to 16 bits is the one rounding the fp32
 //   kernel does not make (l sums the unrounded p).  O stays in fp32
 //   registers until the end.  Warp specialisation and overlapping the
-//   softmax with the next product are later work.
+//   softmax with the next product are later work.  Given an `lse` pointer
+//   (the training step's forward; null when serving), the launch takes the
+//   instance whose epilogue also writes each row's log-sum-exp, m + log2(l)
+//   in natural log, which the backward (`flash_attention_bwd.cu`)
+//   recomputes P from.  It is a template parameter, not a branch on the
+//   pointer: the store costs the kernel 10 registers and 1-3% of its time,
+//   which serving then never pays.
 // * fp32 (`attn_f32_kernel`): the CUDA-core kernel, kept because the only
 //   fp32 route to the tensor cores is TF32, which keeps about 3 digits and
 //   would break the fp32 contract (2e-3 of the output's scale).  One block of
@@ -58,12 +65,8 @@
 // KVH).  All tensors are taken with strides (unit stride on d), so the
 // model's (b, s, heads, d) activations need no transpose copies.  Q tiles
 // are issued last-first, so the longest causal rows start earliest.
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
@@ -76,6 +79,8 @@ struct Params {
   long long qsb, qsh, qss, ksb, ksh, kst, vsb, vsh, vst, osb, osh, oss;
   int causal, window;
   float scale, softcap;
+  float* lse;  // (b, h, s) natural-log sum of exp of each row's scores, or null
+  long long lsb, lsh;
 };
 
 // ---------------------------------------------------------------- fp32 ----
@@ -253,221 +258,25 @@ constexpr int kWgThreads = 256;
 #ifndef REPRO_FLASH_SMALL_D_STAGES
 #define REPRO_FLASH_SMALL_D_STAGES 2
 #endif
-constexpr float kLog2e = 1.4426950408889634f;
-
 template <int D>
 struct Tile {
-  static_assert(D % 16 == 0 && D <= 256, "the head dim must be a multiple of 16, at most 256");
+  using X = Box<D>;
   static constexpr int kStages = D > 64 ? 2 : REPRO_FLASH_SMALL_D_STAGES;
   static constexpr int kKeys = D > 128 ? 64 : 128;  // keys per K/V tile
-  static constexpr int kBoxCols = D <= 32 ? 32 : 64;  // columns of one TMA box
-  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;  // columns past D: zeros
-  static constexpr int kRowBytes = kBoxCols * 2;    // one swizzled row: 128 B (64 B at d <= 32)
+  static constexpr int kBoxCols = X::kCols;
+  static constexpr int kBoxes = X::kCount;
+  static constexpr int kRowBytes = X::kRowBytes;
   static constexpr int kQBoxBytes = kRows * kRowBytes;   // a 128-row Q box
   static constexpr int kKVBoxBytes = kKeys * kRowBytes;  // a K or V box
   static constexpr int kQBytes = kBoxes * kQBoxBytes;    // the Q tile
   static constexpr int kKVBytes = kBoxes * kKVBoxBytes;  // a K or V tile
-  static constexpr int kGroupBytes = 8 * kRowBytes; // 8 rows: one swizzle pattern
-  static constexpr uint64_t kLayout = kBoxCols == 32 ? 2 : 1;  // wgmma: 1 = 128-byte, 2 = 64-byte swizzle
+  static constexpr int kGroupBytes = X::kGroupBytes;
+  static constexpr uint64_t kLayout = X::kLayout;
   static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;  // + alignment slack
   static_assert(kSmem <= 232448 - 1024, "over the shared memory a block may have");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// spin until the phase of parity `parity` has completed; a wait of more than
-// about 2^34 cycles (seconds) can only be a fault, and traps instead of
-// hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long start = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && clock64() - start > (1ll << 34)) __trap();
-  } while (!done);
-}
-
-// one TMA box of a 4-D tensor map into shared memory, counted on `bar`
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-        "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle mode in bits 62-63
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accesses of an accumulator across the
-// asynchronous product that owns it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// two floats rounded to the 16-bit type T, packed in one register
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// the operand type of the wgmma instructions for T
-template <typename T> constexpr bool kF16 = false;
-template <> constexpr bool kF16<__half> = true;
-
-// S (64 x 128) = Q (64 x 16) K^T (16 x 128), and O (64 x N) += P (64 x 16) V (16 x N):
-// the accumulator is spread over the warpgroup's 128 threads (N / 2 floats each)
-#define WGMMA_SS_M64N128(TY)                                                                                  \
-  asm volatile(                                                                                                 \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                              \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                             \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                        \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                        \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                       \
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                                           \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
-      : "l"(da), "l"(db), "r"(accumulate));
-template <typename T>
-__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  if constexpr (kF16<T>) {
-    WGMMA_SS_M64N128("f16");
-  } else {
-    WGMMA_SS_M64N128("bf16");
-  }
-}
-
-#define WGMMA_SS_M64N64(TY)                                                                                   \
-  asm volatile(                                                                                                 \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                              \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                              \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "                       \
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                                           \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
-      : "l"(da), "l"(db), "r"(accumulate));
-template <typename T>
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
-                                                int accumulate) {
-  if constexpr (kF16<T>) {
-    WGMMA_SS_M64N64("f16");
-  } else {
-    WGMMA_SS_M64N64("bf16");
-  }
-}
-
-// S += Q K^T for one 16-column step over the N keys of a K tile
-template <typename T, int N>
-__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  if constexpr (N == 64) {
-    wgmma_ss_m64n64<T>(d, da, db, accumulate);
-  } else {
-    wgmma_ss_m64n128<T>(d, da, db, accumulate);
-  }
-}
-
-#define WGMMA_RS_M64N32(TY)                                                                                \
-  asm volatile(                                                                                              \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                           \
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"                                           \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "                              \
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                                          \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),      \
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-template <typename T>
-__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  if constexpr (kF16<T>) {
-    WGMMA_RS_M64N32("f16");
-  } else {
-    WGMMA_RS_M64N32("bf16");
-  }
-}
-
-#define WGMMA_RS_M64N64(TY)                                                                                   \
-  asm volatile(                                                                                                 \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                              \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                              \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "                       \
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                             \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-template <typename T>
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  if constexpr (kF16<T>) {
-    WGMMA_RS_M64N64("f16");
-  } else {
-    WGMMA_RS_M64N64("bf16");
-  }
-}
-
-// O += P V for one 16-key step over the N columns of one V box
-template <typename T, int N>
-__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 32) {
-    wgmma_rs_m64n32<T>(d, a, db);
-  } else {
-    wgmma_rs_m64n64<T>(d, a, db);
-  }
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
@@ -662,6 +471,14 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     inv[r] = 1.f / fmaxf(l_r[r], 1e-30f);
   }
+  if (kLse && lane % 4 == 0) {
+    // the row's log-sum-exp of its scaled (and capped) scores, for the
+    // backward: m and log2(l) are in the log2 domain
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + 8 * r < p.S)
+        p.lse[b * p.lsb + h * p.lsh + r0 + 8 * r] = (m_r[r] + log2f(l_r[r])) / kLog2e;
+  }
   T* o = static_cast<T*>(p.o) + b * p.osb + h * p.osh;
 #pragma unroll
   for (int c = 0; c < L::kBoxes; ++c)
@@ -679,59 +496,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver symbol: fetched through the runtime,
-// so the library links nothing beyond it
-EncodeTiled encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                            cudaEnableDefault, &found);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
-// a tensor map over a (d, rows, heads, batch) view with element strides
-// (1, s_row, s_head, s_b) and a box of (L::kBoxCols, box_rows, 1, 1); rows
-// past `rows` and columns past D arrive zero-filled
-template <typename T, int D>
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads, int B, long long s_row,
-              long long s_head, long long s_b, int box_rows) {
-  using L = Tile<D>;
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads, (cuuint64_t)B};
-  const long long st[3] = {s_row, s_head, s_b};
-  cuuint64_t strides[3];
-  cuuint64_t packed = D * 2;
-  for (int i = 0; i < 3; ++i) {
-    // a dim of extent 1 is never stepped: it gets the packed stride
-    strides[i] = dims[i + 1] == 1 ? packed : (cuuint64_t)st[i] * 2;
-    packed = strides[i] * dims[i + 1];
-  }
-  const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapDataType type =
-      kF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             L::kBoxCols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   constexpr int keys = Tile<D>::kKeys;
@@ -740,7 +505,7 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
       !make_map<T, D>(&mv, p.v, p.T, p.KVH, B, p.vst, p.vsh, p.vsb, keys))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = Tile<D>::kSmem;
-  auto kern = attn_wgmma_kernel<T, D>;
+  auto kern = attn_wgmma_kernel<T, D, kLse>;
   // the shared-memory limit is set once per instance, not at every launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -749,13 +514,21 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   kern<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
 }
+// the instance with the log-sum-exp store where `lse` is given (no d 256
+// one: the backward is not compiled there)
+template <typename T, int D>
+int launch_16bit(const Params& p, int B, cudaStream_t stream) {
+  if (p.lse == nullptr) return launch_wgmma<T, D, false>(p, B, stream);
+  if constexpr (D == 256) return (int)cudaErrorInvalidValue;
+  else return launch_wgmma<T, D, true>(p, B, stream);
+}
 template <int D>
 int launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  return launch_wgmma<__nv_bfloat16, D>(p, B, stream);
+  return launch_16bit<__nv_bfloat16, D>(p, B, stream);
 }
 template <int D>
 int launch_f16(const Params& p, int B, cudaStream_t stream) {
-  return launch_wgmma<__half, D>(p, B, stream);
+  return launch_16bit<__half, D>(p, B, stream);
 }
 
 }  // namespace
@@ -764,16 +537,21 @@ int launch_f16(const Params& p, int B, cudaStream_t stream) {
 // TMA kernel).  Strides are in elements, for the (batch, head, position)
 // dims; the head dim has unit stride.  The wgmma kernel needs 16-byte
 // aligned bases and byte
-// strides (the launcher checks).  Returns 0 or a cudaError_t code.
+// strides (the launcher checks).  `lse`, if not null (16-bit only, d up to
+// 128), is an fp32 (B, H, S) array with strides (lsb, lsh, 1) that receives
+// each row's log-sum-exp.  Returns 0 or a cudaError_t code.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int KVH, int S, int T, int D, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kst, long long vsb,
     long long vsh, long long vst, long long osb, long long osh, long long oss,
-    int causal, int window, float scale, float softcap, void* stream) {
+    int causal, int window, float scale, float softcap, void* lse, long long lsb,
+    long long lsh, void* stream) {
   if (KVH <= 0 || H % KVH != 0) return (int)cudaErrorInvalidValue;
+  if (lse != nullptr && dtype == 0) return (int)cudaErrorInvalidValue;  // 16-bit only
   Params p{q, k, v, o, H, KVH, S, T, qsb, qsh, qss, ksb, ksh, kst,
-           vsb, vsh, vst, osb, osh, oss, causal, window, scale, softcap};
+           vsb, vsh, vst, osb, osh, oss, causal, window, scale, softcap,
+           static_cast<float*>(lse), lsb, lsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the head dims compiled: kernel.py's HEAD_DIMS
 #define REPRO_FLASH_DISPATCH(LAUNCH)                    \

@@ -9,7 +9,8 @@ Each kernel ships the reference package's three layers:
 
 Kernels: tiled_matmul (block-configurable GEMM — the section V GEMM case
 study), winograd (F(2x2,3x3) conv — the paper's headline cuDNN algorithm),
-flash_attention (online-softmax attention forward — the LMs' prefill).
+flash_attention (online-softmax attention forward — the LMs' prefill — and
+its 16-bit backward, which the training step runs).
 """
 from repro_torch.kernels.dispatch import use_kernel
 

@@ -5,15 +5,13 @@ from __future__ import annotations
 import torch
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0,
-                  softcap: float = 0.0) -> torch.Tensor:
-    """q: (b, h, s, d); k/v: (b, kv, t, d). GQA by head grouping."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
+            softcap: float):
+    """fp32 (b, h, s, t) scaled (and capped) scores, and the (s, t) mask of
+    the pairs the masks let through."""
     b, h, s, d = q.shape
     kvh, t = k.shape[1], k.shape[2]
-    group = h // kvh
-    kq = k.repeat_interleave(group, dim=1)
-    vq = v.repeat_interleave(group, dim=1)
+    kq = k.repeat_interleave(h // kvh, dim=1)
     scores = torch.einsum("bhsd,bhtd->bhst", q.float(), kq.float()) / (d ** 0.5)
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
@@ -24,6 +22,24 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ok &= k_pos <= q_pos
     if window > 0:
         ok &= (q_pos - k_pos) < window
+    return scores, ok
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """q: (b, h, s, d); k/v: (b, kv, t, d). GQA by head grouping."""
+    scores, ok = _scores(q, k, causal, window, softcap)
+    vq = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     scores = torch.where(ok, scores, torch.full((), -1e30, device=q.device))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", probs, vq.float()).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                      window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """fp32 (b, h, s): each query row's log-sum-exp of its scaled (and
+    capped) scores over the keys it sees, -inf for a row that sees none:
+    what the 16-bit flash kernel writes for the backward."""
+    scores, ok = _scores(q, k, causal, window, softcap)
+    return torch.logsumexp(scores.masked_fill(~ok, float("-inf")), dim=-1)

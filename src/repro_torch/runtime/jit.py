@@ -115,10 +115,12 @@ class GraphPool:
 
 def _counted() -> Tuple[Callable, ...]:
     """The kernel wrappers whose ``launches`` attribute counts launches."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                            flash_attention_fwd)
     from repro_torch.kernels.tiled_matmul.kernel import tiled_matmul
     from repro_torch.kernels.winograd.kernel import winograd_conv, winograd_tiles
-    return flash_attention_fwd, tiled_matmul, winograd_conv, winograd_tiles
+    return (flash_attention_fwd, flash_attention_bwd, tiled_matmul, winograd_conv,
+            winograd_tiles)
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -18,10 +18,12 @@ import torch
 
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
-from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
+from repro_torch.kernels.flash_attention import (attention_lse_ref, attention_ref,
+                                                 flash_attention, flash_attention_bwd,
                                                  flash_attention_fwd)
 from repro_torch.kernels.flash_attention.kernel import check_rows_see_a_key
-from repro_torch.kernels.flash_attention.ops import first_keyless_row, with_keyless_rows
+from repro_torch.kernels.flash_attention.ops import (backward_route, backward_with_keyless_rows,
+                                                     first_keyless_row, with_keyless_rows)
 
 SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
           (1, 4, 4, 384, 64)]
@@ -141,3 +143,117 @@ def test_flash_keeps_the_callers_layout():
     assert tuple(out.shape) == tuple(q.shape)
     np.testing.assert_allclose(_np(out), _np(jax_attention_ref(jq, jk, jv)),
                                rtol=2e-3, atol=2e-3)
+
+
+# -- the backward's dispatch, its keyless rows and the log-sum-exp ----------
+
+@pytest.mark.parametrize("device,dtype,d,route", [
+    ("cpu", torch.float32, 128, "recompute"),     # the CPU: the plain version
+    ("cpu", torch.bfloat16, 128, "recompute"),
+    ("cuda", torch.float32, 128, "recompute"),    # the fp32 forward runs on the CUDA cores
+    ("cuda", torch.bfloat16, 256, "recompute"),   # d 256: no backward instance
+    ("cuda", torch.bfloat16, 128, "kernel"),
+    ("cuda", torch.float16, 16, "kernel"),
+    ("cuda", torch.bfloat16, 112, "kernel")])
+def test_the_backward_is_chosen_by_device_dtype_and_head_dim(device, dtype, d, route):
+    assert backward_route(torch.device(device), dtype, d) == route
+
+
+def _bwd_stand_in(q, k, v, out, lse, dout, **mask):
+    """The backward launcher's signature on the CPU: refuses rows that see
+    no key, as the kernel does, and differentiates attention_ref."""
+    check_rows_see_a_key(q.shape[2], k.shape[2], mask["window"])
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    return torch.autograd.grad(attention_ref(qr, kr, vr, **mask), (qr, kr, vr), dout)
+
+
+def _jax_grads(jq, jk, jv, g, mask):
+    """The reference's gradients: the vjp of its attention_ref at the
+    cotangent ``g``, as its ``custom_vjp`` takes them."""
+    _, vjp = jax.vjp(lambda *a: jax_attention_ref(*a, **mask), jq, jk, jv)
+    return vjp(jnp.asarray(g.numpy()))
+
+
+@pytest.mark.parametrize("s,t,window,causal", [(200, 100, 64, True), (200, 100, 64, False),
+                                               (40, 8, 4, True), (4, 0, 0, True),
+                                               (64, 64, 0, True)])
+def test_the_keyless_rows_gradient_is_added_in_the_op(s, t, window, causal):
+    """Rows that see no key get a uniform softmax over all t keys through a
+    constant score in attention_ref: dv gains their dout / t for every key,
+    dq and dk nothing.  The op adds that around the kernel, which runs on
+    the rows before them (here a stand-in that refuses keyless rows), and
+    the whole is held to the vjp of the reference's attention_ref."""
+    (q, k, v), (jq, jk, jv) = _qkv(1, 4, 2, s, 32, t=t)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(q.shape).astype(np.float32))
+    mask = dict(causal=causal, window=window, softcap=0.0)
+    out, lse = attention_ref(q, k, v, **mask), attention_lse_ref(q, k, **mask)
+    mine = backward_with_keyless_rows(q, k, v, out, lse, g, **mask, kernel=_bwd_stand_in)
+    for a, want in zip(mine, _jax_grads(jq, jk, jv, g, mask)):
+        assert tuple(a.shape) == want.shape
+        np.testing.assert_allclose(_np(a), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window,softcap", [(True, 0, 0.0), (True, 5, 30.0),
+                                                   (False, 0, 0.0)])
+def test_the_log_sum_exp_ref_is_that_of_the_scores_a_row_sees(causal, window, softcap):
+    """``attention_lse_ref``, which the card tests hold the kernel's
+    log-sum-exp to: each row's log-sum-exp of the scaled (and capped)
+    scores the reference's masks let through, -inf where it sees none."""
+    (q, k, _), (jq, jk, _) = _qkv(2, 4, 2, 30, 16, t=20)
+    scores = jnp.einsum("bhsd,bhtd->bhst", jq, jnp.repeat(jk, 2, axis=1)) / 4.0
+    if softcap:
+        scores = softcap * jnp.tanh(scores / softcap)
+    qp, kp = jnp.arange(30)[:, None], jnp.arange(20)[None, :]
+    ok = (kp <= qp) if causal else jnp.ones((30, 20), bool)
+    if window:
+        ok &= (qp - kp) < window
+    want = jax.nn.logsumexp(jnp.where(ok, scores, -jnp.inf), axis=-1)
+    lse = attention_lse_ref(q, k, causal=causal, window=window, softcap=softcap)
+    np.testing.assert_allclose(_np(lse), _np(want), rtol=1e-5, atol=1e-5)
+    keyless = lse[:, :, first_keyless_row(30, 20, window):]
+    assert keyless.numel() == (2 * 4 * 6 if window else 0)
+    assert bool((keyless == float("-inf")).all())
+
+
+def test_the_capture_emits_the_lse_op_and_the_backward_kernels_products():
+    """A captured step through the two ops the card's training runs: the
+    forward's two products and the backward's five (the scores recomputed,
+    dP, dV, dQ, dK), each over the full (s, t) score matrix as the
+    reference computes them, and their outputs as parts."""
+    from repro_torch.core.capture import capture
+
+    def step(q, k, v, g):
+        out, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, True, 0, 0.0)
+        dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, lse, g,
+                                                                True, 0, 0.0)
+        return out, lse, dq, dk, dv
+
+    b, h, kv, s, t, d = 2, 4, 2, 24, 20, 16
+    (q, k, v), _ = _qkv(b, h, kv, s, d, t=t)
+    cap = capture(step, q, k, v, torch.ones_like(q))
+    m = cap.module
+    flops = sum(sc * m.op_flops(c, o)["mxu"] for o, c, sc in m.walk_entry())
+    assert flops == 7 * 2 * b * h * s * t * d
+    ops_seen = [n.target for n in cap.graph.graph.nodes if n.op == "call_function"
+                and "repro_torch" in str(n.target)]
+    assert ops_seen == [torch.ops.repro_torch.flash_attention_lse.default,
+                        torch.ops.repro_torch.flash_attention_bwd.default]
+
+
+def test_a_graph_replay_counts_the_backward_kernels_launches():
+    """A compiled step's replay adds the launches its capture recorded, the
+    backward wrapper's among them, as it does the forward's."""
+    from repro_torch.runtime import jit
+
+    class _Stub:
+        def replay(self):
+            pass
+
+    counted = jit._counted()
+    assert flash_attention_bwd in counted and flash_attention_fwd in counted
+    recorded = {f.__name__: 0 for f in counted}
+    recorded.update(flash_attention_fwd=80, flash_attention_bwd=40)
+    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    jit.Graph(_Stub(), [], None, recorded).replay()
+    assert (flash_attention_fwd.launches - before[0],
+            flash_attention_bwd.launches - before[1]) == (80, 40)

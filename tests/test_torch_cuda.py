@@ -22,8 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
-                                                 flash_attention_fwd)
+from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, attention_lse_ref,
+                                                 attention_ref, flash_attention,
+                                                 flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.tiled_matmul import BLOCK_CONFIGS, matmul, matmul_ref, tiled_matmul
 from repro_torch.kernels.tiled_matmul.kernel import split_k_plan
 from repro_torch.kernels.winograd import (conv3x3_ref, conv3x3_winograd,
@@ -383,17 +384,110 @@ def test_flash_attention_takes_the_models_layout(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_op_gradient(cuda):
-    """Forward through the kernel, backward recomputed through attention_ref."""
+    """Forward through the kernel, backward recomputed through attention_ref
+    (fp32: the backward kernel takes 16-bit inputs only)."""
     q, k, v = (x.requires_grad_() for x in _flash_inputs(1, 4, 2, 128, 64, device=cuda))
     g = _randn(14, 1, 4, 128, 64, device=cuda)
-    before = flash_attention_fwd.launches
+    before, before_bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
     (flash_attention(q, k, v, causal=True, window=64) * g).sum().backward()
     assert flash_attention_fwd.launches == before + 1
+    assert flash_attention_bwd.launches == before_bwd
     refs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     (attention_ref(*refs, causal=True, window=64) * g).sum().backward()
     for mine, ref in zip((q, k, v), refs):
         err, scale = _err(mine.grad, ref.grad)
         assert err <= 2e-3 * scale
+
+
+#: the backward kernel against autograd through attention_ref in fp32, of
+#: each gradient's largest magnitude: the kernel rounds P and dS to the
+#: input's 16-bit type before their products (as the forward rounds P), and
+#: each gradient once, every rounding within half an ulp and their errors
+#: partly cancelling over the keys or queries summed, so the limit is four
+#: ulps of the type at the scale (bf16 4 * 2**-8, fp16 4 * 2**-11).  On the
+#: H100 the worst of 22 cases read 6.0e-3 and 6.2e-4; rounding the fp32
+#: gradients alone reads up to 3.6e-3 and 3.7e-4.
+BWD_TOL = {torch.bfloat16: 4 * 2.0 ** -8, torch.float16: 4 * 2.0 ** -11}
+#: (b, h, kv, s, t, d, causal, window, softcap)
+BWD_CASES = ([(1, 20, 20, 4096, 4096, 128, True, 0, 0.0),   # a qwen1.5-4b training layer
+              (1, 8, 1, 512, 512, 128, True, 0, 0.0),       # GQA group 8
+              (1, 4, 4, 333, 333, 64, True, 100, 0.0),      # a window
+              (1, 4, 2, 200, 280, 64, False, 0, 30.0),      # the softcap, ragged s < t
+              (1, 4, 2, 280, 200, 112, True, 50, 20.0),     # ragged s > t, window, softcap
+              (1, 4, 2, 200, 100, 32, True, 64, 0.0)]       # rows 163.. see no key
+             + [(2, 4, 2, 300, 300, d, True, 0, 0.0) for d in BWD_HEAD_DIMS])
+
+
+def _bwd_inputs(b, h, kv, s, t, d, dtype, device):
+    """q, k, v as the model's (b, s, heads, d) views, and an output gradient."""
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in _flash_inputs(b, h, kv, s, d, t=t, dtype=dtype, device=device))
+    return q, k, v, _randn(17, b, h, s, d, device=device).to(dtype)
+
+
+def _ref_grads(q, k, v, g, mask):
+    qr, kr, vr = (x.detach().float().requires_grad_() for x in (q, k, v))
+    return torch.autograd.grad(attention_ref(qr, kr, vr, **mask), (qr, kr, vr), g.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "b{}h{}kv{}s{}t{}d{}-{}-w{}-c{}".format(*c))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_backward_kernel_matches_autograd_through_attention_ref(cuda, case, dtype):
+    """The op's backward on 16-bit CUDA tensors is one call of the kernel
+    (three launches), held to attention_ref's fp32 gradients (``BWD_TOL``)."""
+    b, h, kv, s, t, d, causal, window, softcap = case
+    mask = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v, g = _bwd_inputs(b, h, kv, s, t, d, dtype, cuda)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = flash_attention_bwd.launches
+    mine = torch.autograd.grad(flash_attention(q, k, v, **mask), (q, k, v), g)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    for name, a, want in zip("qkv", mine, _ref_grads(q, k, v, g, mask)):
+        err, _ = _err(a, want)
+        scale = float(want.abs().max())
+        assert a.dtype == dtype and err <= BWD_TOL[dtype] * scale, (name, err / scale)
+
+
+@pytest.mark.cuda
+def test_flash_backward_gives_the_same_bits_twice_and_refuses_what_it_does_not_take(cuda):
+    """No atomics: two calls on the same inputs agree bit for bit.  fp32
+    and d 256 are not compiled (nor the forward's log-sum-exp store at d
+    256); the forward's log-sum-exp is that of attention_ref's scores."""
+    q, k, v, g = _bwd_inputs(1, 8, 2, 1000, 1000, 128, torch.bfloat16, cuda)
+    lse = torch.empty(1, 8, 1000, device=cuda)
+    out = flash_attention_fwd(q, k, v, causal=True, lse=lse)
+    assert float((lse - attention_lse_ref(q, k, causal=True)).abs().max()) < 1e-4
+    first = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    second = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    f32 = [x.float() for x in (q, k, v, out)]
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        flash_attention_bwd(*f32, lse, g.float(), causal=True)
+    with pytest.raises(TypeError, match="log-sum-exp"):
+        flash_attention_fwd(*f32[:3], causal=True, lse=lse)
+    q2, k2, v2, g2 = _bwd_inputs(1, 2, 2, 64, 64, 256, torch.bfloat16, cuda)
+    lse2 = torch.empty(1, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="log-sum-exp"):
+        flash_attention_fwd(q2, k2, v2, lse=lse2)
+    out2 = flash_attention_fwd(q2, k2, v2)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd(q2, k2, v2, out2, lse2, g2)
+
+
+@pytest.mark.cuda
+def test_flash_backward_d256_keeps_the_recompute(cuda):
+    """At d 256 the op keeps the plain backward, and the forward no
+    log-sum-exp."""
+    q, k, v, g = _bwd_inputs(1, 4, 2, 200, 200, 256, torch.bfloat16, cuda)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = flash_attention_bwd.launches
+    mine = torch.autograd.grad(flash_attention(q, k, v, causal=True), (q, k, v), g)
+    assert flash_attention_bwd.launches == before
+    for a, want in zip(mine, _ref_grads(q, k, v, g, dict(causal=True))):
+        err, _ = _err(a, want)
+        assert err <= BWD_TOL[torch.bfloat16] * float(want.abs().max())
 
 
 @pytest.mark.cuda

@@ -223,13 +223,14 @@ def test_a_capture_whose_driver_cannot_be_read_writes_no_table(monkeypatch, tabl
 TABLE = RegionTable("s", 5, (("b", 1, 2, 1), ("a", 0, 4, 0)))
 
 
-def _replay(t, durations, copy_at=None):
+def _replay(t, durations, copy_at=None, names=None):
     """A marker, the replay's events (1 us apart), two markers; a
-    host-to-device copy after the ``copy_at``-th event."""
+    host-to-device copy after the ``copy_at``-th event.  The events are
+    named ``names`` (default k0, k1, ...)."""
     evs = [(M, t, t + 1)]
     t += 10
     for i, d in enumerate(durations):
-        evs.append((f"k{i}", t, t + d))
+        evs.append((names[i] if names else f"k{i}", t, t + d))
         t += d + 1
         if copy_at == i:
             evs.append(("Memcpy HtoD (Pinned -> Device)", t, t + 50))
@@ -431,7 +432,7 @@ def _trace(skew=0):
     pre, _ = _replay(10 * MS, [10, 20, 30, 40, 50])
     dec1, _ = _replay(20 * MS, [5, 5, 5])
     dec2, _ = _replay(30 * MS, [5, 5, 5])
-    step, t = _replay(40 * MS, [100, 200, 300, 400, 500], copy_at=1)
+    step, t = _replay(40 * MS, [100, 200, 300, 400, 500], copy_at=1, names=STEP_KERNELS)
     ranges = {"bench.prefill": [(10 * MS - 10, pre[-1][2] + 10)],
               "bench.decode": [(20 * MS - 10, dec2[-1][2] + 5)],
               "bench.step": [(40 * MS - 10, t)]}
@@ -464,6 +465,20 @@ def _counters():
         REGISTRY.counter("moe_experts_read_total", step=step).inc(read)
 
 
+#: the fabricated step replay's kernels: one flash backward call (its three
+#: kernels, 300 + 400 + 500 ns) after two others
+STEP_KERNELS = ("k0", "k1", "void flash_bwd_dot_kernel<__nv_bfloat16>",
+                "void flash_bwd_dkdv_kernel<__nv_bfloat16, 128>",
+                "void flash_bwd_dq_kernel<__nv_bfloat16, 128>")
+
+
+def _flash_bwd_roofline():
+    import yardstick as Y
+    bound = Y.bound_s(2 * Y.attn_flops(6, 20, 4096, 4096, 128, True),
+                      2 * Y.flash_fwd_bytes(6, 20, 20, 4096, 4096, 128))
+    return 100.0 * bound / ((300 + 400 + 500) * 1e-9)
+
+
 READERS = {
     # name: (cell, the number the fabricated run gives)
     "moe_overhead_share.prefill": (D, 100.0 * (10 + 20 + 40) / 150),
@@ -474,6 +489,7 @@ READERS = {
     "jit_dispatch_ms.decode": (D, 2e-6),
     "jit_captures": (T, 2.0),
     "data_wait_ms.span": (T, 4e-6),
+    "flash_bwd_roofline.train": (T, _flash_bwd_roofline()),
 }
 
 
