@@ -208,9 +208,9 @@ def build_phase():
     # (UTMALDG) in every bf16 and fp16 flash instance, cp.async (LDGSTS) in
     # tiled_matmul
     counts = sass_counts("flash_attention", "attn_wgmma_kernel", ("HGMMA", "UTMALDG"))
-    check(len(counts) == 22, f"expected 22 wgmma flash instances (bf16 and fp16 at d 16, "
-                             f"32, 64, 112, 128, 256, and with the log-sum-exp store at "
-                             f"all but 256), found {len(counts)}")
+    check(len(counts) == 24, f"expected 24 wgmma flash instances (bf16 and fp16 at d 16, "
+                             f"32, 64, 112, 128, 224, 256, and with the log-sum-exp store "
+                             f"at d 16 to 128), found {len(counts)}")
     check(all(c[op] > 0 for c in counts.values() for op in c),
           "a 16-bit flash instance has no HGMMA or no UTMALDG")
     # the backward's two product kernels, bf16 and fp16 at d 16, 32, 64, 112, 128
@@ -459,7 +459,9 @@ def flash_phase():
     (one llama3-8b layer's prefill attention, handed in as the model's
     (b, s, heads, d) views), a ragged length, the masks and head dims
     llama3-8b does not use, at small sizes, and head dims 16, 112 and 256
-    in every dtype.  Each row is held to its own scale (``_close_rows``)."""
+    in every dtype; d 224 at the published Zamba2's scale, at its serving
+    cell's shape, and the default scale bit for bit as 1/sqrt(d).  Each row
+    is held to its own scale (``_close_rows``)."""
     import torch
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_fwd
     phase("5. flash_attention against attention_ref")
@@ -527,6 +529,45 @@ def flash_phase():
               f"flash_attention disagrees with attention_ref on {label}")
         if label.startswith("slice") and dtype == bf16:
             slice_err = err
+    # the published Zamba2's attention: d 224 (padded to the d-256 boxes,
+    # 64-key tiles) with its scores' scale (224 / 2) ** -0.5, at the shape
+    # of zamba2-7b-instruct.serve.doc4k's prefill and at ragged short
+    # lengths; attention_ref is taken one sequence at a time
+    zscale = (224 / 2) ** -0.5
+    for (b, h, kv, sq, t, d), dtype in (((4, 32, 32, 4088, 4088, 224), bf16),
+                                        ((4, 32, 32, 4088, 4088, 224), f16),
+                                        ((2, 8, 8, 1000, 1000, 224), bf16),
+                                        ((2, 8, 8, 777, 777, 224), f16)):
+        q, k, v = (torch.randn(b, n, heads, d, generator=gen, device="cuda").to(dtype)
+                   .transpose(1, 2) for n, heads in ((sq, h), (t, kv), (t, kv)))
+        out = flash_attention_fwd(q, k, v, causal=True, scale=zscale)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dtype == bf16 else F16_TOL
+        rows = [_close_rows(out[i], attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                                  causal=True, scale=zscale)[0], tol)
+                for i in range(b)]
+        err, worst = max(r[0] for r in rows), max(r[1] for r in rows)
+        label = f"d224 scale (224/2)^-0.5 b{b} h=kv={h} s=t={sq} {dtype} causal"
+        print(f"  {label}: max_abs_err {err:.3e}, worst row {worst:.3e} of its "
+              f"max |ref| (tol {tol})")
+        check(all(r[2] for r in rows) and out.dtype == dtype,
+              f"flash_attention disagrees with attention_ref on {label}")
+        if sq < 4088:   # the scale is taken: the default 1/sqrt(d) gives other rows
+            _, _, same = _close_rows(out, flash_attention_fwd(q, k, v, causal=True), tol)
+            check(not same, f"{label}: the default scale gives the same output")
+        del q, k, v, out
+    # the default scale is 1/sqrt(d), bit for bit, as every call took it
+    # before the op had a scale
+    for d in (128, 224):
+        for dtype in (bf16, f16):
+            q, k, v = (torch.randn(2, 300, heads, d, generator=gen, device="cuda").to(dtype)
+                       .transpose(1, 2) for heads in (8, 2, 2))
+            same = torch.equal(flash_attention_fwd(q, k, v, causal=True),
+                               flash_attention_fwd(q, k, v, causal=True,
+                                                   scale=1.0 / math.sqrt(d)))
+            print(f"  d{d} {dtype}: the default scale and 1/sqrt(d) given, bit for bit: "
+                  f"{same}")
+            check(same, f"d{d} {dtype}: the default scale is not 1/sqrt(d) bit for bit")
     # rows that see no key (from t + window - 1 on): the kernel refuses them,
     # and the op runs it on the rows before and gives the rest attention_ref's
     # value, the mean of v over the t keys

@@ -41,6 +41,7 @@ INSIDE_REPLAY = "inside a replay (between graph nodes)"
 OUTSIDE_SPANS = "outside every repro span"
 #: each loop's phases, and the compiled step replayed in each
 PHASES = {"serve": {"prefill": "prefill", "decode": "decode"}, "train": {"step": "train"}}
+PHASES["serve_hybrid"] = PHASES["serve"]
 
 
 def _gaps(device, lo, hi):

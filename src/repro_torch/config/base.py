@@ -21,7 +21,8 @@ from typing import Any, Mapping, Optional, Sequence, Tuple
 FAMILIES = (
     "dense",      # decoder-only transformer
     "moe",        # decoder-only with MoE FFN
-    "hybrid",     # Mamba2 backbone + periodic shared attention (zamba2)
+    "hybrid",     # Mamba2 backbone + periodic shared attention (the reference's zamba2)
+    "zamba2",     # Zamba2 as published: Mamba2 + two alternating shared blocks
     "ssm",        # attention-free (rwkv6)
     "encdec",     # encoder-decoder (seamless)
     "vlm",        # vision frontend stub + LM backbone (internvl2)
@@ -125,6 +126,24 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """The published Zamba2's own keys, beside :class:`ModelConfig`'s
+    (``family="zamba2"``): Mamba2 layers whose B and C come in
+    ``ssm_ngroups`` groups, scanned in chunks of ``ssm_chunk``; before the
+    layers ``hybrid_layers``, one of ``shared_blocks`` shared transformer
+    blocks, in turn, with a rank-``adapter_rank`` adapter of its MLP and a
+    d x d linear that belong to that point.  A class of its own, so that the
+    reference package's configs and :class:`ModelConfig` keep one set of
+    fields."""
+
+    ssm_ngroups: int = 1
+    ssm_chunk: int = 256
+    hybrid_layers: Tuple[int, ...] = ()
+    shared_blocks: int = 1
+    adapter_rank: int = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,11 @@
 """zamba2-7b [hybrid] — Mamba2 backbone + shared attention blocks.
 [arXiv:2411.15242; unverified]
 
-81 Mamba2 layers; a single *shared* (weight-tied) attention+MLP block is applied
-every 6 layers (14 application points), each with its own KV cache.
+The reference package's simplified block, kept as the reference has it: 81
+Mamba2 layers (one group of B and C); a single *shared* (weight-tied)
+attention+MLP block is applied every 6 layers (81 // 6 = 13 application
+points), each with its own KV cache.  The published model (two blocks over
+[hidden, embedding], heads of 224, adapters) is ``zamba2-7b-instruct``.
 """
 from repro_torch.config import ArchEntry, ModelConfig, register
 

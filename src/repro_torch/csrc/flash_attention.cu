@@ -16,19 +16,21 @@
 // each dtype has exactly one):
 //
 // * bf16 and fp16 (`attn_wgmma_kernel`, one instance each, and one with the
-//   log-sum-exp store at each head dim but 256): the two
+//   log-sum-exp store at each head dim up to 128): the two
 //   products on the tensor cores with
 //   `wgmma`, K/V fed by TMA.  One CTA of two warpgroups per (128 query rows,
 //   head, batch); each warpgroup owns 64 rows.  Q (128 rows) and a 2-stage
 //   ring of K and V tiles (128 keys; 64 at d = 256) are loaded by TMA through
 //   4-D tensor maps over the strided (d, s, heads, b) views, in boxes of 64
 //   columns with the 128-byte swizzle (32 columns with the 64-byte swizzle
-//   at d <= 32).  A head dim that is not a whole number of boxes (16, 112)
-//   is padded to one: the box's columns past d lie outside the tensor map
-//   and arrive zero-filled, so the products run at 32 or 128 columns and
+//   at d <= 32).  A head dim that is not a whole number of boxes (16, 112,
+//   224) is padded to one: the box's columns past d lie outside the tensor
+//   map and arrive zero-filled, so the products run at 32, 128 or 256
+//   columns (S = Q K^T stops at the last k16 step that holds the head) and
 //   only d are stored.  At d = 256 a 128-key ring would need 320 KB of
 //   shared memory and 224 accumulator registers a thread (O alone is 128),
-//   so its tiles hold 64 keys: 192 KB, and S is 32 registers.  One thread
+//   so its tiles hold 64 keys: 192 KB, and S is 32 registers; d = 224 takes
+//   the same layout.  One thread
 //   issues the next tile's loads before the current one
 //   is computed; completion is counted on an mbarrier (`complete_tx`), and
 //   an "empty" mbarrier that every thread arrives at after its last read
@@ -514,12 +516,12 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   kern<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
 }
-// the instance with the log-sum-exp store where `lse` is given (no d 256
-// one: the backward is not compiled there)
+// the instance with the log-sum-exp store where `lse` is given (none at d
+// 224 and 256: the backward is not compiled there)
 template <typename T, int D>
 int launch_16bit(const Params& p, int B, cudaStream_t stream) {
   if (p.lse == nullptr) return launch_wgmma<T, D, false>(p, B, stream);
-  if constexpr (D == 256) return (int)cudaErrorInvalidValue;
+  if constexpr (D > 128) return (int)cudaErrorInvalidValue;
   else return launch_wgmma<T, D, true>(p, B, stream);
 }
 template <int D>
@@ -561,6 +563,7 @@ extern "C" int repro_flash_attention(
     case 64: return LAUNCH<64>(p, B, s);                \
     case 112: return LAUNCH<112>(p, B, s);              \
     case 128: return LAUNCH<128>(p, B, s);              \
+    case 224: return LAUNCH<224>(p, B, s);              \
     case 256: return LAUNCH<256>(p, B, s);              \
     default: return (int)cudaErrorInvalidValue;         \
   }

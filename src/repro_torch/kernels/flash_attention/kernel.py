@@ -23,15 +23,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import launch
 
 #: the head dims compiled into the library; any other raises.  16 (every
-#: smoke config), 112 (zamba2-7b) and 256 (gemma3-12b) run the 16-bit kernel
-#: on boxes padded with zeros past d, and 256 on 64-key tiles (see the note
-#: at the top of the CUDA source)
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+#: smoke config), 112 (zamba2-7b) and 224 (zamba2-7b-instruct) run the
+#: 16-bit kernel on boxes padded with zeros past d, and 224 and 256
+#: (gemma3-12b) on 64-key tiles (see the note at the top of the CUDA source)
+HEAD_DIMS = (16, 32, 64, 112, 128, 224, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the dtypes the tensor-core kernel takes, through TMA
 _WGMMA = (torch.bfloat16, torch.float16)
-#: the head dims the backward kernel is compiled for (d 256 keeps the plain
-#: version: its dK and dV would take 256 fp32 registers a thread)
+#: the head dims the backward kernel is compiled for (d 224 and 256 keep the
+#: plain version: their dK and dV would take 224 or 256 fp32 registers a
+#: thread)
 BWD_HEAD_DIMS = (16, 32, 64, 112, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
@@ -141,10 +142,16 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> 
                          "unit stride on the head dim")
 
 
+def _scale(d: int, scale: Optional[float]) -> float:
+    """The scores' scale: ``scale``, or 1/sqrt(d) where it is None."""
+    return 1.0 / d ** 0.5 if scale is None else float(scale)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         softcap: float = 0.0,
-                        lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        lse: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """q: (b, h, s, d); k/v: (b, kv, t, d) -> (b, h, s, d) in q's dtype, on
     the card.
 
@@ -155,6 +162,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (b, s, heads, d) activations are handed in as transposed views, and the
     output is laid out like q, so neither side copies.  Ragged s and t are
     masked in the kernel (no padding); every query row must see a key.
+    ``scale`` multiplies the scores (None: 1/sqrt(d)).
     ``lse``, for bf16 and fp16 at d in ``BWD_HEAD_DIMS`` only: an fp32
     (b, h, s) tensor with a unit stride on s, into which the kernel writes
     each row's log-sum-exp of its scaled (and capped) scores, natural log,
@@ -187,7 +195,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 out.data_ptr(), _DTYPE_CODES[q.dtype], b, h, kvh, s, t, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *out.stride()[:3], int(causal), int(window),
-                1.0 / d ** 0.5, float(softcap), *lse_args)
+                _scale(d, scale), float(softcap), *lse_args)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed with CUDA error {rc} "
                            f"at q {tuple(q.shape)}, k {tuple(k.shape)}")
@@ -201,7 +209,8 @@ flash_attention_fwd.launches = 0
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                        causal: bool = True, window: int = 0, softcap: float = 0.0
+                        causal: bool = True, window: int = 0, softcap: float = 0.0,
+                        scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of :func:`flash_attention_fwd`'s output
     ``out`` with respect to q, k and v, given the output's gradient ``dout``
@@ -249,7 +258,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                 *dout.stride()[:3], *lse.stride()[:2], *dq.stride()[:3],
                 *dk.stride()[:3], *dv.stride()[:3], int(causal), int(window),
-                1.0 / d ** 0.5, float(softcap))
+                _scale(d, scale), float(softcap))
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed with CUDA error {rc} "
                            f"at q {tuple(q.shape)}, k {tuple(k.shape)}")

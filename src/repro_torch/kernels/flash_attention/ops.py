@@ -12,14 +12,16 @@ after the kernel, which refuses them.
 The backward is chosen by what the inputs show (:func:`backward_route`).
 The plain version recomputes through :func:`attention_ref` and
 differentiates it, as the reference's ``custom_vjp`` does (one sequence and
-head group at a time): CPU tensors, fp32 CUDA tensors and d 256.  Every
-other CUDA tensor runs the hand backward kernel
+head group at a time): CPU tensors, fp32 CUDA tensors and d 224 and 256.
+Every other CUDA tensor runs the hand backward kernel
 (``csrc/flash_attention_bwd.cu``), which the reference does not have: where
 autograd will need it, :func:`flash_attention` calls the kernel route's
 op ``repro_torch::flash_attention_lse`` instead, which also returns each
 row's log-sum-exp, and its backward ``repro_torch::flash_attention_bwd``
-launches the kernel on it.  The route is chosen there alone.  The forward is the region ``attn.flash_fwd`` and either
-backward ``attn.bwd`` (:func:`repro_torch.obs.region`).
+launches the kernel on it.  The route is chosen there alone.  Every op
+takes the scores' ``scale``, None for 1/sqrt(d).  The forward is the region
+``attn.flash_fwd`` and either backward ``attn.bwd``
+(:func:`repro_torch.obs.region`).
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ def first_keyless_row(s: int, t: int, window: int) -> int:
 def with_keyless_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: int, softcap: float,
                       kernel: Callable[..., torch.Tensor] = flash_attention_fwd,
-                      lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      lse: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's output, with the rows that see no key (which the kernel
     refuses) given ``attention_ref``'s value: the mean of v over the t keys,
     zeros at t = 0.  The rows are known from the shapes alone, so the kernel
@@ -60,7 +63,7 @@ def with_keyless_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     signature, for a test on the CPU.)"""
     s, t = q.shape[2], k.shape[2]
     first = first_keyless_row(s, t, window)
-    mask = dict(causal=causal, window=window, softcap=softcap)
+    mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if lse is not None:
         mask["lse"] = lse[:, :, :first]
         if first < s:
@@ -83,10 +86,10 @@ def with_keyless_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def backward_route(device: torch.device, dtype: torch.dtype, head_dim: int) -> str:
     """Which backward the flash op takes for inputs of this device, dtype
     and head dim: ``"recompute"`` (the plain version: CPU tensors, fp32 CUDA
-    tensors, whose forward runs on the CUDA cores, and d 256, which the
-    kernel is not compiled for) or ``"kernel"`` (every other CUDA tensor:
-    the launcher runs or raises)."""
-    if device.type != "cuda" or dtype == torch.float32 or head_dim == 256:
+    tensors, whose forward runs on the CUDA cores, and d 224 and 256, which
+    the kernel is not compiled for) or ``"kernel"`` (every other CUDA
+    tensor: the launcher runs or raises)."""
+    if device.type != "cuda" or dtype == torch.float32 or head_dim in (224, 256):
         return "recompute"
     return "kernel"
 
@@ -94,7 +97,8 @@ def backward_route(device: torch.device, dtype: torch.dtype, head_dim: int) -> s
 def backward_with_keyless_rows(q, k, v, out, lse, dout, *, causal: bool, window: int,
                                softcap: float,
                                kernel: Callable[..., Tuple[torch.Tensor, ...]]
-                               = flash_attention_bwd) -> Tuple[torch.Tensor, ...]:
+                               = flash_attention_bwd,
+                               scale: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
     """The kernel's gradients, with those of the rows that see no key (which
     the kernel refuses) added here.  ``attention_ref`` gives such a row a
     uniform softmax over all t keys through a constant score, so each of its
@@ -104,7 +108,7 @@ def backward_with_keyless_rows(q, k, v, out, lse, dout, *, causal: bool, window:
     stand-in with the launcher's signature, for a test on the CPU.)"""
     s, t = q.shape[2], k.shape[2]
     first = first_keyless_row(s, t, window)
-    mask = dict(causal=causal, window=window, softcap=softcap)
+    mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if first == s:
         return kernel(q, k, v, out, lse, dout, **mask)
     dq = torch.zeros_like(q)
@@ -122,24 +126,25 @@ def backward_with_keyless_rows(q, k, v, out, lse, dout, *, causal: bool, window:
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool, window: int, softcap: float) -> torch.Tensor:
+                       causal: bool, window: int, softcap: float,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if use_kernel(q, k, v):
-        return with_keyless_rows(q, k, v, causal=causal, window=window, softcap=softcap)
+        return with_keyless_rows(q, k, v, **mask)
     # laid out like q, as the kernel and the fake lay it out, so that a
     # captured graph's views of it replay on the CPU too
-    return torch.empty_like(q).copy_(
-        attention_ref(q, k, v, causal=causal, window=window, softcap=softcap))
+    return torch.empty_like(q).copy_(attention_ref(q, k, v, **mask))
 
 
 @flash_attention_op.register_fake
-def _(q, k, v, causal, window, softcap):
+def _(q, k, v, causal, window, softcap, scale=None):
     return torch.empty_like(q)
 
 
 def _setup_context(ctx, inputs, output):
-    q, k, v, causal, window, softcap = inputs
+    q, k, v, causal, window, softcap, scale = inputs
     ctx.save_for_backward(q, k, v)
-    ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+    ctx.mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
 
 
 #: bytes of fp32 scores one piece of the backward may hold (512 MB)
@@ -155,7 +160,8 @@ def backward_pieces(b: int, kvh: int, group: int, s: int, t: int):
     return [(i, h0, min(step, kvh - h0)) for i in range(b) for h0 in range(0, kvh, step)]
 
 
-def recompute_backward(q, k, v, grad, *, causal: bool, window: int, softcap: float):
+def recompute_backward(q, k, v, grad, *, causal: bool, window: int, softcap: float,
+                       scale: Optional[float] = None):
     """The plain backward: recompute through attention_ref and differentiate
     it, piece by piece (:func:`backward_pieces`): each (sequence, head group)
     is independent, so the pieces give the whole tensor's gradients, while
@@ -165,7 +171,7 @@ def recompute_backward(q, k, v, grad, *, causal: bool, window: int, softcap: flo
     b, h, s, _ = q.shape
     kvh, t = k.shape[1], k.shape[2]
     group = h // kvh
-    mask = dict(causal=causal, window=window, softcap=softcap)
+    mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     for i, h0, n in backward_pieces(b, kvh, group, s, t):
         kv = (slice(i, i + 1), slice(h0, h0 + n))
@@ -182,7 +188,7 @@ def _backward(ctx, grad):
     q, k, v = ctx.saved_tensors
     with region("attn.bwd"):
         dq, dk, dv = recompute_backward(q, k, v, grad, **ctx.mask)
-    return dq, dk, dv, None, None, None
+    return dq, dk, dv, None, None, None, None
 
 
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
@@ -190,19 +196,21 @@ flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 @torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=())
 def flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           causal: bool, window: int, softcap: float
+                           causal: bool, window: int, softcap: float,
+                           scale: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel route's forward: the output and each query row's fp32
     log-sum-exp (b, h, s), for the backward kernel (the launcher raises on
     inputs it does not take)."""
     b, h, s, _ = q.shape
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    out = with_keyless_rows(q, k, v, causal=causal, window=window, softcap=softcap, lse=lse)
+    out = with_keyless_rows(q, k, v, causal=causal, window=window, softcap=softcap, lse=lse,
+                            scale=scale)
     return out, lse
 
 
 @flash_attention_lse_op.register_fake
-def _(q, k, v, causal, window, softcap):
+def _(q, k, v, causal, window, softcap, scale=None):
     b, h, s, _ = q.shape
     return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
 
@@ -218,32 +226,33 @@ def _tma_ready(x: torch.Tensor) -> torch.Tensor:
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
 def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-                           causal: bool, window: int, softcap: float
+                           causal: bool, window: int, softcap: float,
+                           scale: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's output and log-sum-exp through the
     backward kernel (which raises on what it does not take)."""
     return backward_with_keyless_rows(q, k, v, out, lse, _tma_ready(dout), causal=causal,
-                                      window=window, softcap=softcap)
+                                      window=window, softcap=softcap, scale=scale)
 
 
 @flash_attention_bwd_op.register_fake
-def _(q, k, v, out, lse, dout, causal, window, softcap):
+def _(q, k, v, out, lse, dout, causal, window, softcap, scale=None):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _setup_context_lse(ctx, inputs, output):
-    q, k, v, causal, window, softcap = inputs
+    q, k, v, causal, window, softcap, scale = inputs
     out, lse = output
     ctx.save_for_backward(q, k, v, out, lse)
     ctx.mark_non_differentiable(lse)
-    ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+    ctx.mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
 
 
 def _backward_lse(ctx, grad, _grad_lse):
     q, k, v, out, lse = ctx.saved_tensors
     with region("attn.bwd"):
         dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse, grad, **ctx.mask)
-    return dq, dk, dv, None, None, None
+    return dq, dk, dv, None, None, None, None
 
 
 flash_attention_lse_op.register_autograd(_backward_lse, setup_context=_setup_context_lse)
@@ -251,12 +260,14 @@ flash_attention_lse_op.register_autograd(_backward_lse, setup_context=_setup_con
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """q: (b, h, s, d); k/v: (b, kv, t, d) head-major -> (b, h, s, d).
+                    softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
+    """q: (b, h, s, d); k/v: (b, kv, t, d) head-major -> (b, h, s, d), the
+    scores scaled by ``scale`` (None: 1/sqrt(d)).
     Differentiable; the hand kernel on CUDA, the plain version on the CPU.
     Where autograd will differentiate it and :func:`backward_route` names
     the kernel, the forward also keeps each row's log-sum-exp for it."""
-    args = (q, k, v, bool(causal), int(window), float(softcap))
+    args = (q, k, v, bool(causal), int(window), float(softcap),
+            None if scale is None else float(scale))
     with region("attn.flash_fwd"):
         if (torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
                 and backward_route(q.device, q.dtype, q.shape[-1]) == "kernel"):

@@ -21,6 +21,9 @@ def build_model(cfg: ModelConfig, sharding: Optional[ShardingConfig] = None, **k
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import HybridLM
         return HybridLM(cfg, sharding)
+    if cfg.family == "zamba2":
+        from repro_torch.models.zamba2 import Zamba2LM
+        return Zamba2LM(cfg, sharding)
     if cfg.family == "ssm":
         from repro_torch.models.rwkv_model import RWKVLM
         return RWKVLM(cfg, sharding)

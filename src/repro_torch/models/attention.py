@@ -12,7 +12,8 @@ reference's ``chunked_sdpa`` has no counterpart here.
 Decode attention (one query against the cache) stays plain PyTorch math, as
 in the reference, which runs no Pallas kernel there: the region
 ``attn.core`` (:func:`repro_torch.obs.region`), beside the flash op's
-``attn.flash_fwd``.
+``attn.flash_fwd``.  Every path takes the scores' ``scale`` (None: 1/sqrt(d),
+the reference's).
 """
 from __future__ import annotations
 
@@ -62,7 +63,8 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         bias: Optional[torch.Tensor], softcap: float = 0.0) -> torch.Tensor:
+         bias: Optional[torch.Tensor], softcap: float = 0.0,
+         scale: Optional[float] = None) -> torch.Tensor:
     """q: (b, s, h, d); k/v: (b, t, kv, d). GQA via head grouping. fp32 softmax.
 
     On DTensors whose kv heads are split over the mesh (a decode cache laid
@@ -70,27 +72,28 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``local_map``: the grouped products fold (b, kv) into one dim, and
     DTensor cannot fold two split dims."""
     if _is_dtensor(k) and any(p.is_shard(2) for p in k.placements):
-        return _sdpa_on_shards(q, k, v, bias, softcap)
-    return _sdpa(q, k, v, bias, softcap)
+        return _sdpa_on_shards(q, k, v, bias, softcap, scale)
+    return _sdpa(q, k, v, bias, softcap, scale)
 
 
-def _sdpa_on_shards(q, k, v, bias, softcap):
+def _sdpa_on_shards(q, k, v, bias, softcap, scale):
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
     pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in k.placements]
-    return local_map(lambda ql, kl, vl, bl: _sdpa(ql, kl, vl, bl, softcap),
+    return local_map(lambda ql, kl, vl, bl: _sdpa(ql, kl, vl, bl, softcap, scale),
                      out_placements=pl, in_placements=(pl, pl, pl, None),
                      device_mesh=k.device_mesh, redistribute_inputs=True)(q, k, v, bias)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          bias: Optional[torch.Tensor], softcap: float = 0.0) -> torch.Tensor:
+          bias: Optional[torch.Tensor], softcap: float = 0.0,
+          scale: Optional[float] = None) -> torch.Tensor:
     b, s, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
     qg = gather_dims(q, (2,), unit=kvh).reshape(b, s, kvh, group, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
-    scores = scores / math.sqrt(d)
+    scores = scores / math.sqrt(d) if scale is None else scores * scale
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
     if bias is not None:
@@ -101,7 +104,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool, window: int, softcap: float) -> torch.Tensor:
+           causal: bool, window: int, softcap: float,
+           scale: Optional[float] = None) -> torch.Tensor:
     """(b, s, heads, d) in and out, through the flash op on head-major views
     (the kernel takes strides: no transpose copies on the card).
 
@@ -114,9 +118,10 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mesh = ambient_mesh()
     if mesh is None or not _is_dtensor(q):
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal, window=window, softcap=softcap)
+                              causal=causal, window=window, softcap=softcap, scale=scale)
         return out.transpose(1, 2)
-    return _flash_local(q, k, v, mesh, causal=causal, window=window, softcap=softcap)
+    return _flash_local(q, k, v, mesh, causal=causal, window=window, softcap=softcap,
+                        scale=scale)
 
 
 def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
@@ -137,7 +142,8 @@ def _is_dtensor(x: torch.Tensor) -> bool:
     return isinstance(x, DTensor)
 
 
-def _flash_local(q, k, v, mesh, *, causal: bool, window: int, softcap: float):
+def _flash_local(q, k, v, mesh, *, causal: bool, window: int, softcap: float,
+                 scale: Optional[float] = None):
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -158,7 +164,7 @@ def _flash_local(q, k, v, mesh, *, causal: bool, window: int, softcap: float):
 
     def local(ql, kl, vl):
         out = flash_attention(ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
-                              causal=causal, window=window, softcap=softcap)
+                              causal=causal, window=window, softcap=softcap, scale=scale)
         return out.transpose(1, 2)
 
     pq = list(pq)      # a list is one output's placements, a tuple several outputs'
@@ -197,7 +203,8 @@ def attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def attention_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor, *, window: int = 0
+                      positions: torch.Tensor, *, window: int = 0,
+                      scale: Optional[float] = None
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Like :func:`attention` but also returns (k, v) for the KV cache."""
     b, s, _ = x.shape
@@ -207,7 +214,7 @@ def attention_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     v = _heads(dense(x, params["wv"], params.get("bv")), kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = _flash(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap)
+    out = _flash(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap, scale=scale)
     out = dense(_merge_heads(out), params["wo"])
     k = lc(k, ("batch", "kv_seq", "kv_heads", "head_dim"))
     v = lc(v, ("batch", "kv_seq", "kv_heads", "head_dim"))
@@ -216,7 +223,7 @@ def attention_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def attention_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
-                     *, window: int = 0
+                     *, window: int = 0, scale: Optional[float] = None
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode against a (b, S, kv, hd) cache.
 
@@ -242,7 +249,7 @@ def attention_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
         bias = _mask_bias(posv, k_pos, causal=True, window=window,
                           k_valid_len=pos + 1)
-        out = sdpa(q, cache_k, cache_v, bias, cfg.logit_softcap)
+        out = sdpa(q, cache_k, cache_v, bias, cfg.logit_softcap, scale)
     out = dense(_merge_heads(out), params["wo"])
     return out, (cache_k, cache_v)
 

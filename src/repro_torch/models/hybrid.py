@@ -1,7 +1,10 @@
 """Zamba2-style hybrid LM: Mamba2 backbone + a single weight-SHARED attention
 block applied every ``attn_every`` layers.
 
-The port of ``repro.models.hybrid.HybridLM``, with its parameter tree.
+The port of ``repro.models.hybrid.HybridLM``, the reference package's
+simplified block, with its parameter tree; the published Zamba2 (two
+blocks over [hidden, embedding], adapters, per-point linears, grouped
+Mamba2) is :mod:`repro_torch.models.zamba2` (``zamba2-7b-instruct``).
 Structure (G = num_layers // attn_every groups, R = remainder mamba layers):
 
     for g in 0..G-1:   shared_attn_block(x)  ;  attn_every x mamba(x)

@@ -6,11 +6,25 @@ The state-space-dual algorithm runs as a Python loop over sequence chunks
 the work within a chunk is products (``torch.einsum``).  Decode is the
 O(1)-state recurrence.
 
-Shapes: d_inner = expand*d_model, heads = d_inner/64 (headdim p=64), ngroups=1,
-state n = cfg.ssm_state.
+Shapes: d_inner = expand*d_model, heads = d_inner/64 (headdim p=64), state
+n = cfg.ssm_state, and ``groups`` groups of B and C (1, the reference's
+layout, unless a caller passes more): heads split evenly over the groups,
+head i reading group i // (heads / groups), and the gated RMS norm taken
+over each group's d_inner / groups channels.  With ``chunk`` 0 the scan
+runs in the reference's chunks (:data:`CHUNK`, shrunk to divide the
+sequence); with a chunk length (the published Zamba2's) in chunks of that
+length and a shorter last one, which is what padding the sequence with
+zeros to a whole chunk gives (a padded step neither decays nor feeds the
+state).
+
+The scan's chunk loop (and the decode recurrence) is the region
+``ssm.scan``, nested in ``ssm.mixer``, which covers the rest of the mixer
+(:func:`repro_torch.obs.region`); each scan counts its chunks on
+``ssm_scan_chunks_total`` (:func:`repro_torch.obs.regions.count`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -19,6 +33,8 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.distributed.sharding import gather_dims, lc, on_shards, whole_grad
 from repro_torch.models.layers import ParamSpec, dense, rms_norm
+from repro_torch.obs import region
+from repro_torch.obs.regions import count
 
 HEADDIM = 64
 CHUNK = 128
@@ -31,12 +47,18 @@ def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     return d_inner, heads, headdim, cfg.ssm_state
 
 
-def ssm_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+def conv_channels(cfg: ModelConfig, groups: int = 1) -> int:
+    """The causal conv's channels: x, then every group's B, then C."""
+    d_inner, _, _, n = _dims(cfg)
+    return d_inner + 2 * groups * n
+
+
+def ssm_param_specs(cfg: ModelConfig, groups: int = 1) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     d_inner, heads, headdim, n = _dims(cfg)
-    conv_ch = d_inner + 2 * n
+    conv_ch = conv_channels(cfg, groups)
     return {
-        "in_proj": ParamSpec((d, 2 * d_inner + 2 * n + heads), ("fsdp", "ffn")),
+        "in_proj": ParamSpec((d, d_inner + conv_ch + heads), ("fsdp", "ffn")),
         "conv_w": ParamSpec((cfg.ssm_conv, conv_ch), (None, "ffn"), init="fan_in"),
         "conv_b": ParamSpec((conv_ch,), ("ffn",), init="zeros"),
         "dt_bias": ParamSpec((heads,), ("ssm_heads",), init="zeros"),
@@ -47,9 +69,15 @@ def ssm_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor, groups: int):
     d_inner, heads, headdim, n = _dims(cfg)
-    return torch.split(zxbcdt, [d_inner, d_inner, n, n, heads], dim=-1)
+    gn = groups * n
+    return torch.split(zxbcdt, [d_inner, d_inner, gn, gn, heads], dim=-1)
+
+
+def _by_group(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """B or C (..., groups * n) as (..., groups, n)."""
+    return t.reshape(*t.shape[:-1], groups, t.shape[-1] // groups)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -77,43 +105,65 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-                state0: torch.Tensor, chunk: int = CHUNK
+                state0: torch.Tensor, chunk: int = CHUNK, ragged: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.
 
     xdt:   (b, s, h, p)  — inputs pre-multiplied by dt
     dA:    (b, s, h)     — per-step log decay (dt * A, A<0)
-    B, C:  (b, s, n)     — shared across heads (ngroups=1)
+    B, C:  (b, s, g, n)  — g groups, head i reading group i // (h / g);
+           or (b, s, n), one group shared across heads
     state0:(b, h, p, n)
     Returns y: (b, s, h, p), final state (fp32).
+
+    Without ``ragged`` the chunks are the reference's: ``chunk`` shrunk to
+    divide s (one chunk below it); with it, chunks of ``chunk`` and a
+    shorter last one.  The loop is the region ``ssm.scan``, and its chunks
+    count on ``ssm_scan_chunks_total``.
     """
     b, s, h, p = xdt.shape
-    nc = max(s // chunk, 1)
-    chunk = s // nc
-    if nc * chunk != s:
-        raise ValueError(f"ssd_chunked: s={s} is not {nc} chunks of {chunk}")
+    if not ragged:
+        nc = max(s // chunk, 1)
+        chunk = s // nc
+        if nc * chunk != s:
+            raise ValueError(f"ssd_chunked: s={s} is not {nc} chunks of {chunk}")
+    if B.dim() == 3:
+        B, C = B[:, :, None], C[:, :, None]
     state = state0.float()
     ys = []
-    for c0 in range(0, s, chunk):
-        xc, ac, bc, cc = (t[:, c0:c0 + chunk] for t in (xdt, dA, B, C))
-        a_cum = torch.cumsum(ac, dim=1)                        # (b, l, h)
-        # intra-chunk: M[b,h,i,j] = C_i.B_j * exp(a_cum_i - a_cum_j) for j<=i
-        L = torch.exp(_segsum(ac.transpose(1, 2)))             # (b, h, l, l)
-        scores = torch.einsum("bin,bjn->bij", cc, bc)          # (b, l, l)
-        M = (scores[:, None] * L).to(xc.dtype)                 # (b, h, l, l)
-        y_diag = torch.einsum("bhij,bjhp->bihp", M, xc)
-        # contribution of the incoming state
-        sdecay = torch.exp(a_cum)                              # (b, l, h)
-        y_off = torch.einsum("bin,bhpn,bih->bihp", cc.float(), state,
-                             sdecay).to(xc.dtype)
-        # state update
-        total = a_cum[:, -1:, :]                               # (b, 1, h)
-        rdecay = torch.exp(total - a_cum)                      # (b, l, h)
-        state = state * torch.exp(total)[:, 0, :, None, None] + torch.einsum(
-            "bjn,bjh,bjhp->bhpn", bc.float(), rdecay.float(), xc.float())
-        state = lc(state, ("batch", "ssm_heads", None, None))
-        ys.append(y_diag + y_off)
-    return torch.cat(ys, dim=1), state
+    with region("ssm.scan"):
+        for c0 in range(0, s, chunk):
+            y, state = _chunk_step(*(t[:, c0:c0 + chunk] for t in (xdt, dA, B, C)), state)
+            state = lc(state, ("batch", "ssm_heads", None, None))
+            ys.append(y)
+        count("ssm_scan_chunks_total", len(ys))
+        return torch.cat(ys, dim=1), state
+
+
+def _chunk_step(xc: torch.Tensor, ac: torch.Tensor, bc: torch.Tensor, cc: torch.Tensor,
+                state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the scan, B and C in g groups (b, l, g, n): its output
+    (b, l, h, p) and the state after it.  The heads are taken as (g, r),
+    r = h / g, so that C_i.B_j is formed once a group."""
+    b, l, h, p = xc.shape
+    g, n = bc.shape[2], bc.shape[3]
+    r = h // g
+    xg = xc.reshape(b, l, g, r, p)
+    a_cum = torch.cumsum(ac, dim=1)                        # (b, l, h)
+    # intra-chunk: M[b,h,i,j] = C_i.B_j * exp(a_cum_i - a_cum_j) for j<=i
+    L = torch.exp(_segsum(ac.transpose(1, 2))).reshape(b, g, r, l, l)
+    scores = torch.einsum("bign,bjgn->bgij", cc, bc)       # (b, g, l, l)
+    M = (scores[:, :, None] * L).to(xc.dtype)              # (b, g, r, l, l)
+    y_diag = torch.einsum("bgrij,bjgrp->bigrp", M, xg)
+    # contribution of the incoming state, then the state update
+    sdecay = torch.exp(a_cum).reshape(b, l, g, r)
+    sg = state.reshape(b, g, r, p, n)
+    y_off = torch.einsum("bign,bgrpn,bigr->bigrp", cc.float(), sg, sdecay).to(xc.dtype)
+    total = a_cum[:, -1:, :]                               # (b, 1, h)
+    rdecay = torch.exp(total - a_cum).reshape(b, l, g, r)
+    state = state * torch.exp(total)[:, 0, :, None, None] + torch.einsum(
+        "bjgn,bjgr,bjgrp->bgrpn", bc.float(), rdecay, xg.float()).reshape(b, h, p, n)
+    return (y_diag + y_off).reshape(b, l, h, p), state
 
 
 def _heads(t: torch.Tensor, heads: int, headdim: int) -> torch.Tensor:
@@ -131,31 +181,38 @@ def _merge_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return whole_grad(merged, (-1,), unit=heads)
 
 
-def _mixer_inputs(params: Dict, cfg: ModelConfig, x: torch.Tensor):
+def _mixer_inputs(params: Dict, cfg: ModelConfig, x: torch.Tensor, groups: int):
     """The projections, the causal conv and dt: (z, xh (b, s, h, p), xdt,
-    dA, B, C, the conv's raw input (b, s, c))."""
+    dA, B, C (b, s, groups, n), the conv's raw input (b, s, c))."""
     d_inner, heads, headdim, n = _dims(cfg)
+    gn = groups * n
     b, s, _ = x.shape
     zxbcdt = dense(x, params["in_proj"])
-    z, xs, B, C, dt = _split_proj(cfg, zxbcdt)
+    z, xs, B, C, dt = _split_proj(cfg, zxbcdt, groups)
     xbc_raw = torch.cat([xs, B, C], dim=-1)
     xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
-    xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
+    xs, B, C = torch.split(xbc, [d_inner, gn, gn], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"].float())       # (b, s, h)
     A = -torch.exp(params["a_log"].float())                       # (h,)
     xh = lc(_heads(xs, heads, headdim), ("batch", None, "ssm_heads", None))
     xdt = (xh.float() * dt[..., None]).to(x.dtype)
     dA = lc(dt * A, ("batch", None, "ssm_heads"))                # (b, s, h)
-    return z, xh, xdt, dA, B, C, xbc_raw
+    return z, xh, xdt, dA, _by_group(B, groups), _by_group(C, groups), xbc_raw
+
+
+def _gated_norm(params: Dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
+                groups: int) -> torch.Tensor:
+    """The RMS norm of y * silu(z), over each group's channels."""
+    gated = (y * F.silu(z)).unflatten(-1, (groups, -1))
+    return rms_norm(gated, params["norm"].reshape(groups, -1), cfg.norm_eps).flatten(-2)
 
 
 def _mixer_out(params: Dict, cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
-               xh: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+               xh: torch.Tensor, z: torch.Tensor, groups: int) -> torch.Tensor:
     heads = y.shape[2]
     y = y + xh * params["d_skip"].to(x.dtype)[None, None, :, None]
     y = _merge_heads(y, heads)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return dense(y, params["out_proj"])
+    return dense(_gated_norm(params, cfg, y, z, groups), params["out_proj"])
 
 
 def ssm_mixer(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -163,68 +220,79 @@ def ssm_mixer(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return ssm_prefill(params, cfg, x)[0]
 
 
-def ssm_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def ssm_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor, groups: int = 1,
+                chunk: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`ssm_mixer` and the decode cache it leaves: {state (b, h, p, n)
-    fp32, conv: the last ``ssm_conv - 1`` raw conv inputs}."""
+    fp32, conv: the last ``ssm_conv - 1`` raw conv inputs}.  ``groups`` and
+    ``chunk`` as the module's docstring has them."""
     d_inner, heads, headdim, n = _dims(cfg)
-    z, xh, xdt, dA, B, C, xbc_raw = _mixer_inputs(params, cfg, x)
-    state0 = torch.zeros((x.shape[0], heads, headdim, n), dtype=torch.float32,
-                         device=x.device)
-    # on a mesh each rank scans its own rows and heads (the scan's products
-    # fold (b, heads), which DTensor cannot do with both split)
-    hx, sx, rows = ("batch", None, "ssm_heads", None), ("batch", "ssm_heads", None, None), \
-        ("batch", None, None)
-    y, state = on_shards(ssd_chunked, (xdt, dA, B, C, state0),
-                         (hx, ("batch", None, "ssm_heads"), rows, rows, sx), (hx, sx))
-    y = lc(y, ("batch", None, "ssm_heads", None))
-    out = _mixer_out(params, cfg, x, y, xh, z)
-    return out, {"state": state, "conv": xbc_raw[:, -(cfg.ssm_conv - 1):, :]}
+    with region("ssm.mixer"):
+        z, xh, xdt, dA, B, C, xbc_raw = _mixer_inputs(params, cfg, x, groups)
+        state0 = torch.zeros((x.shape[0], heads, headdim, n), dtype=torch.float32,
+                             device=x.device)
+        # on a mesh each rank scans its own rows and heads (the scan's products
+        # fold (b, heads), which DTensor cannot do with both split)
+        hx, sx = ("batch", None, "ssm_heads", None), ("batch", "ssm_heads", None, None)
+        rows = ("batch", None, None, None)
+        scan = functools.partial(ssd_chunked, chunk=chunk or CHUNK, ragged=bool(chunk))
+        y, state = on_shards(scan, (xdt, dA, B, C, state0),
+                             (hx, ("batch", None, "ssm_heads"), rows, rows, sx), (hx, sx))
+        y = lc(y, ("batch", None, "ssm_heads", None))
+        out = _mixer_out(params, cfg, x, y, xh, z, groups)
+    # a copy: a view would hold the whole (b, s, c) conv input alive
+    return out, {"state": state, "conv": xbc_raw[:, -(cfg.ssm_conv - 1):, :].clone()}
 
 
 # ---------------------------------------------------------------------------
 # Decode (recurrent, O(1) per token)
 # ---------------------------------------------------------------------------
 
-def ssm_cache_shape(cfg: ModelConfig, batch: int) -> Dict[str, Tuple[int, ...]]:
+def ssm_cache_shape(cfg: ModelConfig, batch: int, groups: int = 1
+                    ) -> Dict[str, Tuple[int, ...]]:
     d_inner, heads, headdim, n = _dims(cfg)
-    conv_ch = d_inner + 2 * n
     return {
         "state": (batch, heads, headdim, n),
-        "conv": (batch, cfg.ssm_conv - 1, conv_ch),
+        "conv": (batch, cfg.ssm_conv - 1, conv_channels(cfg, groups)),
     }
 
 
 def _ssd_step(B1: torch.Tensor, C1: torch.Tensor, xh: torch.Tensor, dt1: torch.Tensor,
               dA: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One token's state update and read, per (batch row, head)."""
-    state = state * dA[..., None, None] + torch.einsum("bn,bhp->bhpn", B1, xh * dt1[..., None])
-    return torch.einsum("bn,bhpn->bhp", C1, state), state
+    """One token's state update and read, per (batch row, head); B1 and C1
+    (b, g, n) by group."""
+    r = xh.shape[1] // B1.shape[1]
+    B1, C1 = B1.repeat_interleave(r, dim=1), C1.repeat_interleave(r, dim=1)
+    state = state * dA[..., None, None] + torch.einsum("bhn,bhp->bhpn", B1, xh * dt1[..., None])
+    return torch.einsum("bhn,bhpn->bhp", C1, state), state
 
 
 def ssm_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    cache: Dict[str, torch.Tensor]
+                    cache: Dict[str, torch.Tensor], groups: int = 1
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (b, 1, d); cache: {state: (b,h,p,n) fp32, conv: (b,w-1,c)}."""
     d_inner, heads, headdim, n = _dims(cfg)
-    zxbcdt = dense(x, params["in_proj"])
-    z, xs, B, C, dt = _split_proj(cfg, zxbcdt)
-    xbc_new = torch.cat([xs, B, C], dim=-1)                          # (b, 1, c)
-    window = torch.cat([cache["conv"], xbc_new], dim=1)              # (b, w, c)
-    conv_out = torch.sum(window * params["conv_w"].to(window.dtype)[None], dim=1)
-    xbc = F.silu(conv_out + params["conv_b"].to(conv_out.dtype))
-    xs1, B1, C1 = torch.split(xbc, [d_inner, n, n], dim=-1)          # (b, c)
-    dt1 = F.softplus(dt[:, 0].float() + params["dt_bias"].float())  # (b, h)
-    A = -torch.exp(params["a_log"].float())
-    xh = _heads(xs1, heads, headdim).float()
-    dA = torch.exp(dt1 * A)                                          # (b, h)
-    hx, rows = ("batch", "ssm_heads", None), ("batch", None)
-    y, state = on_shards(_ssd_step, (B1.float(), C1.float(), xh, dt1, dA, cache["state"]),
-                         (rows, rows, hx, ("batch", "ssm_heads"), ("batch", "ssm_heads"),
-                          ("batch", "ssm_heads", None, None)),
-                         (hx, ("batch", "ssm_heads", None, None)))
-    y = y + xh * params["d_skip"].float()[None, :, None]
-    y = _merge_heads(y, heads).unsqueeze(1).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = dense(y, params["out_proj"])
+    gn = groups * n
+    with region("ssm.mixer"):
+        zxbcdt = dense(x, params["in_proj"])
+        z, xs, B, C, dt = _split_proj(cfg, zxbcdt, groups)
+        xbc_new = torch.cat([xs, B, C], dim=-1)                          # (b, 1, c)
+        window = torch.cat([cache["conv"], xbc_new], dim=1)              # (b, w, c)
+        conv_out = torch.sum(window * params["conv_w"].to(window.dtype)[None], dim=1)
+        xbc = F.silu(conv_out + params["conv_b"].to(conv_out.dtype))
+        xs1, B1, C1 = torch.split(xbc, [d_inner, gn, gn], dim=-1)        # (b, c)
+        B1, C1 = _by_group(B1, groups), _by_group(C1, groups)
+        dt1 = F.softplus(dt[:, 0].float() + params["dt_bias"].float())  # (b, h)
+        A = -torch.exp(params["a_log"].float())
+        xh = _heads(xs1, heads, headdim).float()
+        dA = torch.exp(dt1 * A)                                          # (b, h)
+        hx, rows = ("batch", "ssm_heads", None), ("batch", None, None)
+        with region("ssm.scan"):
+            y, state = on_shards(_ssd_step, (B1.float(), C1.float(), xh, dt1, dA,
+                                             cache["state"]),
+                                 (rows, rows, hx, ("batch", "ssm_heads"), ("batch", "ssm_heads"),
+                                  ("batch", "ssm_heads", None, None)),
+                                 (hx, ("batch", "ssm_heads", None, None)))
+        y = y + xh * params["d_skip"].float()[None, :, None]
+        y = _merge_heads(y, heads).unsqueeze(1).to(x.dtype)
+        out = dense(_gated_norm(params, cfg, y, z, groups), params["out_proj"])
     return out, {"state": state, "conv": window[:, 1:]}

@@ -33,6 +33,13 @@ the i-th of them down to the i-th node of the table (the benchmark's
 ``port_bench/replays.py``).  The marker kernel is launched once when a graph
 is captured (:func:`warm`), so that its lazy loading falls in set-up and
 not in a traced segment.
+
+A count of a model's own (:func:`count`: the chunks a scan runs, the
+shared blocks a step applies) is known from the shapes on the host.  It is
+counted as the routing counts are (:mod:`repro_torch.obs.routing`): only
+while a profiler records, inline in an eager step, and, in a captured
+graph, kept by its capture and added at each replay made while a profiler
+records.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.autograd.profiler as _profiler
 
+from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import _NULL_SPAN, profiler_range
 
 #: ``CUgraphNodeType`` of the nodes that are device work: kernel, memcpy, memset
@@ -134,9 +142,10 @@ def _driver() -> _Driver:
 
 
 class Capture:
-    """One capture in progress: the regions written so far, and ``kept``,
-    the tensors the graph rewrites at each replay that a counter reads
-    after it (``moe_ffn``'s ``filled``)."""
+    """One capture in progress: the regions written so far, ``kept``, the
+    tensors the graph rewrites at each replay that a counter reads after it
+    (``moe_ffn``'s ``filled``), and ``counts``, the host counts each replay
+    adds (:func:`count`)."""
 
     def __init__(self, step: str, stream: int):
         self.step = step
@@ -144,6 +153,7 @@ class Capture:
         self.regions: List[Tuple[str, int, int, int]] = []
         self.depth = 0
         self.kept: List[Any] = []
+        self.counts: List[Tuple[str, int, Dict[str, Any]]] = []
         self.failed: Optional[str] = None
         self._count = 0
         self._last: Optional[int] = None
@@ -269,6 +279,24 @@ def step(name: str):
     if not _profiler._is_profiler_enabled:
         return _NULL_SPAN
     return _Step(name)
+
+
+def count(name: str, n: int, **labels: Any) -> None:
+    """Add ``n`` to the counter ``name`` of :data:`REGISTRY`, labelled with
+    the compiled step and ``labels``: kept by a capture in progress (each
+    replay adds it, :func:`add_counts`), counted now while a profiler
+    records, ignored otherwise."""
+    cap = capturing()
+    if cap is not None:
+        cap.counts.append((name, n, labels))
+    elif _profiler._is_profiler_enabled:
+        REGISTRY.counter(name, step=current_step(), **labels).inc(n)
+
+
+def add_counts(step: str, counts: Sequence[Tuple[str, int, Dict[str, Any]]]) -> None:
+    """A traced replay's share of the counts its capture kept."""
+    for name, n, labels in counts:
+        REGISTRY.counter(name, step=step, **labels).inc(n)
 
 
 # ---------------------------------------------------------------------------

@@ -157,13 +157,15 @@ class Graph:
     """One captured signature: the graph, the tensors it reads (``None``
     where the input leaf is no tensor), its outputs, the kernel launches
     its capture recorded, by wrapper name, the compiled step's name and the
-    tensors its capture kept for the routing counts."""
+    tensors its capture kept for the routing counts, and the host counts
+    each traced replay adds (:func:`repro_torch.obs.regions.count`)."""
     graph: Any
     inputs: List[Optional[torch.Tensor]]
     out: Any
     launches: Dict[str, int]
     step: str = "step"
     kept: List[Any] = field(default_factory=list)
+    counts: List[Any] = field(default_factory=list)
 
     def replay(self) -> None:
         if _profiler._is_profiler_enabled:
@@ -172,6 +174,7 @@ class Graph:
             regions.mark_end()
             if self.kept:
                 routing.count(self.step, self.kept)
+            regions.add_counts(self.step, self.counts)
         else:
             self.graph.replay()
         for f in _counted():
@@ -260,7 +263,7 @@ class Jitted:
             launches[f.__name__] = f.launches - n
             f.launches = n
         return Graph(graph, [x if isinstance(x, torch.Tensor) else None for x in leaves],
-                     out, launches, self.name, cap.kept)
+                     out, launches, self.name, cap.kept, cap.counts)
 
     def _write_donated(self, args: Sequence[Any], out: Any) -> Any:
         """``out`` with the part of each donated argument's tree structure
