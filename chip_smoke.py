@@ -6,7 +6,9 @@
 Builds the port's hand-written kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card (flash attention at head
 dims 16 to 256; its 16-bit backward against autograd through
-``attention_ref`` at d 16 to 128, phase 5b), then drives the port's three paths, each with every
+``attention_ref`` at d 16 to 128, phase 5b; the SSD chunk scan against the
+fp32 loop at the Zamba2 cell's shape, timed, and launched once a layer by
+a full-width prefill, phase 5c), then drives the port's three paths, each with every
 kernel's launch count set to 0 just before and read just after:
 
 * LeNet — ``repro_torch.lenet_repro.run``, the paper's experiments: train
@@ -697,6 +699,153 @@ def flash_bwd_phase():
             "max_abs_err": worst, "ms": t_k, "device_ms": t_d, "plain_ms": t_plain,
             "library_ms": t_lib, "bound_ms": bound, "bound_by": bound_by,
             "fwd_ms_without_with_lse": t_fwd}
+
+
+#: the published Zamba2's prefill scan (the benchmark's zamba2 cell): b 4,
+#: s 4,088, h 112, p 64, g 2, n 64, chunks of 256 with a ragged last one
+SSD_ARCH = "zamba2-7b-instruct"
+SSD_SHAPE = (4, 4088, 112, 2, 64, 256)
+#: the hybrid phase 20 serves, and the scans of its prefill there: one
+#: group, ``ssm.CHUNK`` (128) dividing the prompt
+SSD_SERVED = "zamba2-7b"
+
+
+def _ssd_served_shape():
+    """(b, s, h, g, n, chunk) of ``SSD_SERVED``'s scans in phase 20."""
+    from repro_torch import config as C
+    from repro_torch.models.ssm import CHUNK
+    cfg = C.get(SSD_SERVED).full
+    nc = max(SERVE_PROMPT // CHUNK, 1)
+    check(SERVE_PROMPT % nc == 0, f"{SERVE_PROMPT} positions are not {nc} chunks")
+    return (SERVE_BATCH, SERVE_PROMPT, cfg.d_model * cfg.ssm_expand // 64, 1, cfg.ssm_state,
+            SERVE_PROMPT // nc)
+
+
+def _ssd_inputs(b, s, h, g, n, dtype, seed=0):
+    """A prefill's scan inputs as the model hands them over (xdt, B and C
+    with the positions at unit stride, as its conv output lies): x dt, dt A
+    (dt = softplus(N(-2, 1)), A in -[1, 16]), B and C N(0, 1/4), a zero
+    state."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, s, h, 64, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen, device="cuda") - 2)
+    A = -(1 + 15 * torch.rand(h, generator=gen, device="cuda"))
+    B, C = (0.5 * torch.randn(b, s, g, n, generator=gen, device="cuda") for _ in range(2))
+    return (_positions_major((x * dt[..., None]).to(dtype)), dt * A,
+            _positions_major(B.to(dtype)), _positions_major(C.to(dtype)),
+            torch.zeros(b, h, 64, n, device="cuda"))
+
+
+def _positions_major(t):
+    """``t`` (b, s, k, d) copied into the layout of the model's conv output:
+    the positions at unit stride, feature by feature."""
+    import torch
+    b, s, k, d = t.shape
+    return torch.empty(b, k, d, s, dtype=t.dtype, device=t.device).permute(0, 3, 1, 2).copy_(t)
+
+
+def _ssd_truth(xdt, dA, B, C, state0):
+    """The scan as the step-by-step recurrence in float64, one position at
+    a time: what every chunking computes, without its rounding."""
+    import torch
+    b, s, h, p = xdt.shape
+    r = h // B.shape[2]
+    Bh, Ch = (t.double().repeat_interleave(r, dim=2) for t in (B, C))
+    x, a = xdt.double(), torch.exp(dA.double())
+    state, ys = state0.double(), []
+    for i in range(s):
+        state = state * a[:, i, :, None, None] + x[:, i, :, :, None] * Bh[:, i, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, i]))
+    return torch.stack(ys, dim=1), state
+
+
+def ssd_phase():
+    """Phase 5c: the SSD scan kernel (``csrc/ssd_scan.cu``) at the
+    benchmark's zamba2 shape and at the shape phase 20's zamba2-7b prefill
+    gives it, in bf16 and fp16, against the plain loop in fp32 and the
+    16-bit loop, and (the cell's shape, bf16) all three against the float64
+    recurrence; two calls bit for bit; its time a layer and a prefill (81
+    layers: CUDA events and the profiler's device time) beside its bound
+    and the eager loop's; its registers and spills.  Its launches on the
+    main path are phase 20's."""
+    import torch
+    from repro_torch import config as C
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    phase("5c. the SSD chunk-scan kernel against the plain loop at the zamba2 shapes")
+    for line in build.build_log("ssd_scan").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ssd_scan: {line.strip()}")
+    shapes = {SSD_ARCH: SSD_SHAPE, SSD_SERVED: _ssd_served_shape()}
+    errs, times = {}, {}
+    for where, (b, s, h, g, n, chunk) in shapes.items():
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
+            args = _ssd_inputs(b, s, h, g, n, dtype)
+            before = ssd_scan.launches
+            y, state = ssd_scan(*args, chunk)
+            torch.cuda.synchronize()
+            check(ssd_scan.launches == before + 1, "ssd_scan did not count its launch")
+            y2, state2 = ssd_scan(*args, chunk)
+            same = torch.equal(y, y2) and torch.equal(state, state2)
+            check(same, f"two {name} ssd_scan calls on the same inputs differ in their bits")
+            del y2, state2
+            want_y, want_state = ssd_scan_ref(*(a.float() for a in args), chunk)
+            loop_y, _ = ssd_scan_ref(*args, chunk)
+            top, stop = float(want_y.abs().max()), float(want_state.abs().max())
+            e = {"y_abs": float((y.float() - want_y).abs().max()),
+                 "y": float((y.float() - want_y).abs().max()) / top,
+                 "state": float((state - want_state).abs().max()) / stop,
+                 "y_norm": float((y.float() - want_y).norm() / want_y.norm()),
+                 "loop_y": float((loop_y.float() - want_y).abs().max()) / top,
+                 "loop_y_norm": float((loop_y.float() - want_y).norm() / want_y.norm())}
+            if where == SSD_ARCH and dtype == torch.bfloat16:
+                ty, tstate = _ssd_truth(*args)
+                runs = {"kernel": (y, state), "fp32 loop": (want_y, want_state),
+                        "bf16 loop": (loop_y, None)}
+                e["truth"] = {k: (float((yy.double() - ty).norm() / ty.norm()),
+                                  None if ss is None else
+                                  float((ss.double() - tstate).abs().max() / tstate.abs().max()))
+                              for k, (yy, ss) in runs.items()}
+                del ty, tstate
+            errs[f"{where} {name}"] = e
+            print(f"  {where} {name} b{b} s{s} h{h} g{g} n{n} chunk {chunk}: y {e['y']:.2e} of "
+                  f"max|y| (the 16-bit loop {e['loop_y']:.2e}), over the whole y "
+                  f"{e['y_norm']:.2e} (loop {e['loop_y_norm']:.2e}); state {e['state']:.2e}; "
+                  "two calls bit for bit")
+            if "truth" in e:
+                print("    against the float64 recurrence (y's norm, state's max): " + "; ".join(
+                    f"{k} {v[0]:.2e}" + ("" if v[1] is None else f", {v[1]:.2e}")
+                    for k, v in e["truth"].items()))
+            check(e["y"] <= (1e-2 if name == "bf16" else 2e-3) and e["state"] <= 1e-4
+                  and e["y_norm"] <= e["loop_y_norm"],
+                  f"ssd_scan disagrees with the fp32 loop at {where}'s shape in {name}: {e}")
+            del y, state, want_y, want_state, loop_y
+            if dtype == torch.bfloat16:
+                kern = lambda: ssd_scan(*args, chunk)  # noqa: E731
+                times[where] = (_time_ms(kern), _device_ms(kern, match="ssd_scan"))
+                if where == SSD_ARCH:
+                    t_plain = _time_ms(lambda: ssd_scan_ref(*args, chunk), reps=3, warmup=1)
+            del args
+    b, s, h, g, n, chunk = SSD_SHAPE
+    pairs = sum(l * (l + 1) // 2 for l in [chunk] * (s // chunk) + [s % chunk] * bool(s % chunk))
+    flops = b * (pairs * (2.0 * n * g + 2.0 * 64 * h) + s * 2 * (2.0 * h * 64 * n))
+    nbytes = (2 * b * s * h * 64 * 2 + 2 * b * s * g * n * 2 + b * s * h * 4
+              + 2 * b * h * 64 * n * 4)
+    bound, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+    layers = C.get(SSD_ARCH).full.num_layers
+    t_k, t_d = times[SSD_ARCH]
+    print(f"  a layer at the cell's shape (bf16, the model's layout): kernel {t_k:.4f} ms (CUDA "
+          f"events), device {_fmt_ms(t_d)}; {layers} layers {t_k * layers:.1f} ms a prefill; "
+          f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+          f"plain version (the eager loop) {t_plain:.2f} ms; no library call; {CARD}")
+    print(f"  a layer at {SSD_SERVED}'s phase-20 shape (bf16): kernel "
+          f"{times[SSD_SERVED][0]:.4f} ms (CUDA events), device {_fmt_ms(times[SSD_SERVED][1])}")
+    return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "none (the reference scans with lax.scan)",
+            "max_abs_err": errs[f"{SSD_ARCH} bf16"]["y_abs"], "errors": errs, "ms": t_k,
+            "device_ms": t_d, "served_shape_ms": times[SSD_SERVED], "plain_ms": t_plain,
+            "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
 
 
 def main_path_phase():
@@ -2580,17 +2729,27 @@ def _flash_per_prefill(cfg):
     return cfg.num_layers
 
 
+def _ssd_per_prefill(cfg):
+    """The SSD scan kernel's launches in one 16-bit prefill on the card: one
+    per Mamba2 layer of the hybrids (every layer of their stacks), none
+    elsewhere."""
+    return cfg.num_layers if cfg.family in ("hybrid", "zamba2") else 0
+
+
 def _serve_full(arch, smoke=False):
     """``arch`` served through ``launch.serve.run`` (bf16, random weights
     from seed 0) on the llama3-8b requests, every kernel's count set to 0
     just before and read just after; then a second call (the prefill's
-    capture) and a warm repeat of the same requests (prefill ms, decode
-    tok/s, peak memory, which must stay under the card's), the flash launches of one prefill, and a profile of one
-    prefill and of four decode steps (the device's busy share)."""
+    capture: the SSD scan launches inside its graph) and a warm repeat of
+    the same requests (prefill ms, decode tok/s, peak memory, which must
+    stay under the card's), the flash launches of one prefill, and a
+    profile of one prefill and of four decode steps (the device's busy
+    share)."""
     import gc
 
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.tiled_matmul import tiled_matmul
     from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
     from repro_torch.launch import serve
@@ -2600,7 +2759,8 @@ def _serve_full(arch, smoke=False):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated() / 1e9
     kerns = {"tiled_matmul": tiled_matmul, "winograd_conv": winograd_conv,
-             "winograd_tiles": winograd_tiles, "flash_attention": flash_attention_fwd}
+             "winograd_tiles": winograd_tiles, "flash_attention": flash_attention_fwd,
+             "ssd_scan": ssd_scan}
     for kern in kerns.values():
         kern.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2616,6 +2776,10 @@ def _serve_full(arch, smoke=False):
     server.generate(requests, max_new_tokens=SERVE_NEW)
     peak_first = torch.cuda.max_memory_allocated() / 1e9
     cfg, tokens = model.cfg, res["tokens"]
+    ssd_in_graph = server._prefill.last.launches["ssd_scan"]
+    check(launches["ssd_scan"] == ssd_in_graph == _ssd_per_prefill(cfg),
+          f"{arch}: ssd_scan launched {launches['ssd_scan']} times in the first call's prefill "
+          f"and {ssd_in_graph} in the prefill's graph, expected {_ssd_per_prefill(cfg)}")
     weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     check(tokens.shape[0] == SERVE_BATCH and 1 <= tokens.shape[1] <= SERVE_NEW
@@ -2655,7 +2819,8 @@ def _serve_full(arch, smoke=False):
            "prefill_ms": warm.prefill_s * 1e3, "decode_tok_per_s": warm.decode_tok_per_s,
            "decode_step_ms": warm.decode_s * 1e3 / steps,
            "peak_gb": peak, "peak_first_call_gb": peak_first, "launches": launches,
-           "flash_per_prefill": per_prefill, "prefill_busy_ms": busy,
+           "flash_per_prefill": per_prefill, "ssd_in_prefill_graph": ssd_in_graph,
+           "prefill_busy_ms": busy,
            "prefill_window_ms": window.get("ms"), "decode_busy_ms": dbusy,
            "decode_window_ms": dwindow.get("ms")}
     share = (f"{100 * busy / window['ms']:.1f}%" if busy and window.get("ms")
@@ -2667,7 +2832,7 @@ def _serve_full(arch, smoke=False):
           f"{out['decode_tok_per_s']:.1f} tok/s ({out['decode_step_ms']:.2f} ms a step), "
           f"peak memory {peak:.2f} GB ({peak_first:.2f} GB over the first two calls, "
           f"init and the captures included; the card holds {card_gb:.2f}); flash "
-          f"{per_prefill} a prefill; "
+          f"{per_prefill} a prefill; ssd_scan {ssd_in_graph} in the prefill's graph; "
           f"{CARD}")
     return out, res
 
@@ -3559,6 +3724,7 @@ def main() -> int:
         wino_errs = winograd_phase()
         flash_err = flash_phase()
         flash_bwd = flash_bwd_phase()
+        ssd = ssd_phase()
         launches, pps, lenet = main_path_phase()
         kernels = timing_phase(launches, pps, mm_err, wino_errs)
         step = step_phase()
@@ -3605,6 +3771,10 @@ def main() -> int:
         flash_bwd["launches_in_graph"] = {
             f"one {TRAIN_ARCH} FULL train step": train["graphed"]["full"]["bwd_in_graph"]}
         kernels.append(flash_bwd)
+        ssd["launches"] = families[SSD_SERVED]["launches"]["ssd_scan"]
+        ssd["launches_in_graph"] = {
+            f"one {SSD_SERVED} FULL prefill": families[SSD_SERVED]["ssd_in_prefill_graph"]}
+        kernels.append(ssd)
         flash["launches_in_graph"] = {
             f"one {SERVE_ARCH} FULL prefill": graphs["flash_in_prefill_graph"],
             f"one {TRAIN_ARCH} FULL train step": train["graphed"]["full"]["flash_in_graph"]}
@@ -3620,7 +3790,7 @@ def main() -> int:
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.2e} "
         f"ms={k['ms']:.4f} device_ms={k['device_ms']} plain_ms={k['plain_ms']:.4f} "
-        f"library_ms={k['library_ms']:.4f} bound_us={k['bound_ms'] * 1e3:.2f} "
+        f"library_ms={_fmt_ms(k['library_ms'])} bound_us={k['bound_ms'] * 1e3:.2f} "
         f"({k['bound_by']})" for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

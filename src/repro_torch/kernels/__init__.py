@@ -10,7 +10,8 @@ Each kernel ships the reference package's three layers:
 Kernels: tiled_matmul (block-configurable GEMM — the section V GEMM case
 study), winograd (F(2x2,3x3) conv — the paper's headline cuDNN algorithm),
 flash_attention (online-softmax attention forward — the LMs' prefill — and
-its 16-bit backward, which the training step runs).
+its 16-bit backward, which the training step runs), ssd_scan (Mamba2's
+chunked scan of a prefill, which the reference runs as ``lax.scan``).
 """
 from repro_torch.kernels.dispatch import use_kernel
 

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS: Tuple[str, ...] = ("tiled_matmul", "winograd", "flash_attention",
-                            "flash_attention_bwd")
+                            "flash_attention_bwd", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: libraries linked beyond the CUDA runtime (the TMA encoder is fetched

@@ -15,7 +15,8 @@ when R > 0, and ``shared`` is one block whose weights every application
 reuses; each application has its own KV cache.  Simplifications vs the
 released model (the reference's): no per-application LoRA on the shared
 block, standard pre-norm residual wiring.  The shared block's causal
-self-attention runs the flash op; the Mamba2 layers run plain PyTorch.
+self-attention runs the flash op; the Mamba2 layers run plain PyTorch but
+for their scan, which a 16-bit prefill on the card runs as the SSD kernel.
 """
 from __future__ import annotations
 

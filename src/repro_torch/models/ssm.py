@@ -1,10 +1,13 @@
 """Mamba2 (SSD) mixer: chunked-parallel training path + recurrent decode.
 
 The port of ``repro.models.ssm``, with its parameter names and layouts.
-The state-space-dual algorithm runs as a Python loop over sequence chunks
-(the reference's ``lax.scan``), the state carried across chunks in fp32;
-the work within a chunk is products (``torch.einsum``).  Decode is the
-O(1)-state recurrence.
+The state-space-dual algorithm runs over sequence chunks, the state carried
+across chunks in fp32.  On the card a prefill's scan is one launch a layer
+of the hand-written kernel (``kernels/ssd_scan``, ``csrc/ssd_scan.cu``);
+the plain version, which the CPU, fp32, ``meta`` tensors and training take,
+is a Python loop over the chunks (the reference's ``lax.scan``) whose work
+within a chunk is products (``torch.einsum``).  Decode is the O(1)-state
+recurrence.
 
 Shapes: d_inner = expand*d_model, heads = d_inner/64 (headdim p=64), state
 n = cfg.ssm_state, and ``groups`` groups of B and C (1, the reference's
@@ -17,10 +20,11 @@ length and a shorter last one, which is what padding the sequence with
 zeros to a whole chunk gives (a padded step neither decays nor feeds the
 state).
 
-The scan's chunk loop (and the decode recurrence) is the region
-``ssm.scan``, nested in ``ssm.mixer``, which covers the rest of the mixer
+The scan (and the decode recurrence) is the region ``ssm.scan``, nested in
+``ssm.mixer``, which covers the rest of the mixer
 (:func:`repro_torch.obs.region`); each scan counts its chunks on
-``ssm_scan_chunks_total`` (:func:`repro_torch.obs.regions.count`).
+``ssm_scan_chunks_total``, and those the kernel covered also on
+``ssm_scan_kernel_chunks_total`` (:func:`repro_torch.obs.regions.count`).
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed.sharding import gather_dims, lc, on_shards, whole_grad
+from repro_torch.kernels.ssd_scan.ops import scan_route, ssd_scan_op
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models.layers import ParamSpec, dense, rms_norm
 from repro_torch.obs import region
 from repro_torch.obs.regions import count
@@ -95,15 +101,6 @@ def _causal_conv_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
     return F.silu(out.transpose(1, 2) + b.to(x.dtype))
 
 
-def _segsum(a: torch.Tensor) -> torch.Tensor:
-    """a: (..., l) -> (..., l, l) lower-tri segment sums Σ_{k=j+1..i} a_k."""
-    l = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
-    seg = cs[..., :, None] - cs[..., None, :]
-    mask = torch.ones((l, l), dtype=torch.bool, device=a.device).tril()
-    return torch.where(mask, seg, torch.full((), float("-inf"), device=a.device))
-
-
 def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                 state0: torch.Tensor, chunk: int = CHUNK, ragged: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,8 +115,11 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.T
 
     Without ``ragged`` the chunks are the reference's: ``chunk`` shrunk to
     divide s (one chunk below it); with it, chunks of ``chunk`` and a
-    shorter last one.  The loop is the region ``ssm.scan``, and its chunks
-    count on ``ssm_scan_chunks_total``.
+    shorter last one.  Where :func:`scan_route` names the kernel (on the
+    card, a 16-bit prefill) the scan is one launch of it; otherwise the
+    plain loop over the chunks (:func:`ssd_scan_ref`).  Either is the region
+    ``ssm.scan`` and counts its chunks on ``ssm_scan_chunks_total``; the
+    kernel's also on ``ssm_scan_kernel_chunks_total``.
     """
     b, s, h, p = xdt.shape
     if not ragged:
@@ -129,41 +129,15 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.T
             raise ValueError(f"ssd_chunked: s={s} is not {nc} chunks of {chunk}")
     if B.dim() == 3:
         B, C = B[:, :, None], C[:, :, None]
-    state = state0.float()
-    ys = []
+    chunks = -(-s // chunk)
     with region("ssm.scan"):
-        for c0 in range(0, s, chunk):
-            y, state = _chunk_step(*(t[:, c0:c0 + chunk] for t in (xdt, dA, B, C)), state)
-            state = lc(state, ("batch", "ssm_heads", None, None))
-            ys.append(y)
-        count("ssm_scan_chunks_total", len(ys))
-        return torch.cat(ys, dim=1), state
-
-
-def _chunk_step(xc: torch.Tensor, ac: torch.Tensor, bc: torch.Tensor, cc: torch.Tensor,
-                state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One chunk of the scan, B and C in g groups (b, l, g, n): its output
-    (b, l, h, p) and the state after it.  The heads are taken as (g, r),
-    r = h / g, so that C_i.B_j is formed once a group."""
-    b, l, h, p = xc.shape
-    g, n = bc.shape[2], bc.shape[3]
-    r = h // g
-    xg = xc.reshape(b, l, g, r, p)
-    a_cum = torch.cumsum(ac, dim=1)                        # (b, l, h)
-    # intra-chunk: M[b,h,i,j] = C_i.B_j * exp(a_cum_i - a_cum_j) for j<=i
-    L = torch.exp(_segsum(ac.transpose(1, 2))).reshape(b, g, r, l, l)
-    scores = torch.einsum("bign,bjgn->bgij", cc, bc)       # (b, g, l, l)
-    M = (scores[:, :, None] * L).to(xc.dtype)              # (b, g, r, l, l)
-    y_diag = torch.einsum("bgrij,bjgrp->bigrp", M, xg)
-    # contribution of the incoming state, then the state update
-    sdecay = torch.exp(a_cum).reshape(b, l, g, r)
-    sg = state.reshape(b, g, r, p, n)
-    y_off = torch.einsum("bign,bgrpn,bigr->bigrp", cc.float(), sg, sdecay).to(xc.dtype)
-    total = a_cum[:, -1:, :]                               # (b, 1, h)
-    rdecay = torch.exp(total - a_cum).reshape(b, l, g, r)
-    state = state * torch.exp(total)[:, 0, :, None, None] + torch.einsum(
-        "bjgn,bjgr,bjgrp->bgrpn", bc.float(), rdecay, xg.float()).reshape(b, h, p, n)
-    return (y_diag + y_off).reshape(b, l, h, p), state
+        if scan_route(xdt, dA, B, C, state0, chunk) == "kernel":
+            y, state = ssd_scan_op(xdt, dA, B, C, state0, chunk)
+            count("ssm_scan_kernel_chunks_total", chunks)
+        else:
+            y, state = ssd_scan_ref(xdt, dA, B, C, state0, chunk)
+        count("ssm_scan_chunks_total", chunks)
+        return y, state
 
 
 def _heads(t: torch.Tensor, heads: int, headdim: int) -> torch.Tensor:

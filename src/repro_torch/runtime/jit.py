@@ -117,10 +117,11 @@ def _counted() -> Tuple[Callable, ...]:
     """The kernel wrappers whose ``launches`` attribute counts launches."""
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                             flash_attention_fwd)
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
     from repro_torch.kernels.tiled_matmul.kernel import tiled_matmul
     from repro_torch.kernels.winograd.kernel import winograd_conv, winograd_tiles
     return (flash_attention_fwd, flash_attention_bwd, tiled_matmul, winograd_conv,
-            winograd_tiles)
+            winograd_tiles, ssd_scan)
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:

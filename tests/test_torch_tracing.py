@@ -463,6 +463,8 @@ def _counters():
         REGISTRY.counter("moe_choices_dropped_total", step=step).inc(dropped)
         REGISTRY.counter("moe_experts_filled_total", step=step).inc(filled)
         REGISTRY.counter("moe_experts_read_total", step=step).inc(read)
+    REGISTRY.counter("ssm_scan_chunks_total", step="prefill").inc(16)
+    REGISTRY.counter("ssm_scan_kernel_chunks_total", step="prefill").inc(12)
 
 
 #: the fabricated step replay's kernels: one flash backward call (its three
@@ -490,6 +492,8 @@ READERS = {
     "jit_captures": (T, 2.0),
     "data_wait_ms.span": (T, 4e-6),
     "flash_bwd_roofline.train": (T, _flash_bwd_roofline()),
+    # reads the counters alone, whatever the cell
+    "ssm_scan_kernel_pct.prefill": (D, 75.0),
 }
 
 
