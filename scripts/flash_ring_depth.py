@@ -53,12 +53,10 @@ def main() -> int:
         if proc.returncode != 0:
             print(log, file=sys.stderr)
             return 1
-        fn = ctypes.CDLL(str(lib)).repro_flash_attention
-        fn.argtypes, fn.restype = kernel._ARGTYPES, ctypes.c_int
-        fns[depth] = fn
+        fns[depth] = kernel._FWD.bind(ctypes.CDLL(str(lib)))
 
     def run(depth, *args, **kw):
-        kernel._FN = fns[depth]
+        kernel._FWD.fn = fns[depth]
         return kernel.flash_attention_fwd(*args, **kw)
 
     print(torch.cuda.get_device_name(0), subprocess.run(

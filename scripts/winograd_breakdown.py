@@ -85,7 +85,7 @@ def main() -> int:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.winograd import conv3x3_winograd_ref, filter_transform
-    from repro_torch.kernels.winograd.kernel import _ARGTYPES, winograd_plan
+    from repro_torch.kernels.winograd.kernel import _CONV, winograd_plan
     if not torch.cuda.is_available():
         print("winograd_breakdown: no CUDA device", file=sys.stderr)
         return 1
@@ -106,9 +106,7 @@ def main() -> int:
         if proc.returncode != 0:
             print(log, file=sys.stderr)
             return 1
-        fn = ctypes.CDLL(str(lib)).repro_winograd_conv
-        fn.argtypes, fn.restype = _ARGTYPES["repro_winograd_conv"], ctypes.c_int
-        fns[name] = fn
+        fns[name] = _CONV.bind(ctypes.CDLL(str(lib)))
 
     def launch(fn, x, u, y, plan):
         b, h, w, cin = x.shape

@@ -12,6 +12,14 @@ study), winograd (F(2x2,3x3) conv — the paper's headline cuDNN algorithm),
 flash_attention (online-softmax attention forward — the LMs' prefill — and
 its 16-bit backward, which the training step runs), ssd_scan (Mamba2's
 chunked scan of a prefill, which the reference runs as ``lax.scan``).
+
+A new kernel is its package, its ``csrc/<name>.cu`` (which
+``build.KERNELS`` lists by itself) and an emitter for its op in
+``core/capture.py``.  Its ``kernel.py`` declares each C entry point as a
+:class:`~repro_torch.kernels.dispatch.Entry` and calls it through
+:func:`~repro_torch.kernels.dispatch.launch`, which binds, launches, checks
+the error code and counts, also inside a captured CUDA graph; no other
+module names it.
 """
 from repro_torch.kernels.dispatch import use_kernel
 

@@ -21,8 +21,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS: Tuple[str, ...] = ("tiled_matmul", "winograd", "flash_attention",
-                            "flash_attention_bwd", "ssd_scan")
+#: every library, one a source: ``csrc/<name>.cu``
+KERNELS: Tuple[str, ...] = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: libraries linked beyond the CUDA runtime (the TMA encoder is fetched

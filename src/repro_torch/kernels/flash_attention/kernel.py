@@ -19,32 +19,29 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import launch
+from repro_torch.kernels.dispatch import DTYPE_CODES, Entry, counted, launch
 
 #: the head dims compiled into the library; any other raises.  16 (every
 #: smoke config), 112 (zamba2-7b) and 224 (zamba2-7b-instruct) run the
 #: 16-bit kernel on boxes padded with zeros past d, and 224 and 256
 #: (gemma3-12b) on 64-key tiles (see the note at the top of the CUDA source)
 HEAD_DIMS = (16, 32, 64, 112, 128, 224, 256)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the dtypes the tensor-core kernel takes, through TMA
 _WGMMA = (torch.bfloat16, torch.float16)
 #: the head dims the backward kernel is compiled for (d 224 and 256 keep the
 #: plain version: their dK and dV would take 224 or 256 fp32 registers a
 #: thread)
 BWD_HEAD_DIMS = (16, 32, 64, 112, 128)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_FWD = Entry("flash_attention", "repro_flash_attention",
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
              + [ctypes.c_float] * 2 + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
              + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 26
-                 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_BWD = Entry("flash_attention_bwd", "repro_flash_attention_bwd",
+             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 26
+             + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 #: the backward's scratch rows (D and the log2-domain LSE) are padded to this
 _BWD_PAD = 64
-
-_FN = None
-_BWD_FN = None
 
 
 def check_rows_see_a_key(s: int, t: int, window: int) -> None:
@@ -94,29 +91,6 @@ def check_tma_layout(name: str, shape, strides, itemsize: int,
         raise ValueError(problem)
 
 
-def _bind(name: str, symbol: str, argtypes):
-    fn = getattr(build.load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _lib():
-    """The forward's C entry point, built, loaded and bound at the first call only."""
-    global _FN
-    if _FN is None:
-        _FN = _bind("flash_attention", "repro_flash_attention", _ARGTYPES)
-    return _FN
-
-
-def _bwd_lib():
-    """The backward's C entry point, built, loaded and bound at the first call only."""
-    global _BWD_FN
-    if _BWD_FN is None:
-        _BWD_FN = _bind("flash_attention_bwd", "repro_flash_attention_bwd", _BWD_ARGTYPES)
-    return _BWD_FN
-
-
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
     """Raise unless q (b, h, s, d) and k/v (b, kv, t, d) are CUDA tensors of
     one device and one dtype the kernels take, with kv dividing h, d in
@@ -125,7 +99,7 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> 
     if not all(x.is_cuda and x.device == q.device for x in tensors):
         raise ValueError(f"{name} needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
-    if not all(x.dtype == q.dtype for x in tensors) or q.dtype not in _DTYPE_CODES:
+    if not all(x.dtype == q.dtype for x in tensors) or q.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} takes float32, bfloat16 or float16 of one "
                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
@@ -147,6 +121,7 @@ def _scale(d: int, scale: Optional[float]) -> float:
     return 1.0 / d ** 0.5 if scale is None else float(scale)
 
 
+@counted
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         softcap: float = 0.0,
@@ -191,22 +166,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype in _WGMMA:
         for name, x in (("q", q), ("k", k), ("v", v)):
             check_tma_layout(name, x.shape, x.stride(), x.element_size(), x.data_ptr())
-    rc = launch(_lib(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), _DTYPE_CODES[q.dtype], b, h, kvh, s, t, d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *out.stride()[:3], int(causal), int(window),
-                _scale(d, scale), float(softcap), *lse_args)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed with CUDA error {rc} "
-                           f"at q {tuple(q.shape)}, k {tuple(k.shape)}")
-    flash_attention_fwd.launches += 1
+    launch(_FWD, flash_attention_fwd, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), DTYPE_CODES[q.dtype], b, h, kvh, s, t, d,
+           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           *out.stride()[:3], int(causal), int(window),
+           _scale(d, scale), float(softcap), *lse_args,
+           detail=lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)}")
     return out
 
 
-#: kernel launches since the last reset (the main path's proof of use)
-flash_attention_fwd.launches = 0
-
-
+@counted
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
                         causal: bool = True, window: int = 0, softcap: float = 0.0,
@@ -221,9 +190,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out`` (b, h, s, d) with any strides whose last one is 1, ``lse`` fp32
     (b, h, s) with a unit stride on s.  Every query row must see a key.  The
     gradients come out in q's dtype, each laid out like its input where that
-    is dense.  Three launches (see the note at the top of the CUDA source);
-    two calls on the same inputs give the same bits.  Raises on anything
-    else, and if a launch fails.
+    is dense.  Three launches, counted as one (see the note at the top of the
+    CUDA source); two calls on the same inputs give the same bits.  Raises
+    on anything else, and if a launch fails.
     """
     _check_qkv(q, k, v, "flash_attention_bwd")
     b, h, s, d = q.shape
@@ -251,21 +220,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_tma_layout(name, x.shape, x.stride(), x.element_size(), x.data_ptr())
     sp = -(-s // _BWD_PAD) * _BWD_PAD
     lse2, dsum = torch.empty(2, b * h * sp, dtype=torch.float32, device=q.device)
-    rc = launch(_bwd_lib(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), dout.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
-                dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                _DTYPE_CODES[q.dtype], b, h, kvh, s, t, d, sp,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                *dout.stride()[:3], *lse.stride()[:2], *dq.stride()[:3],
-                *dk.stride()[:3], *dv.stride()[:3], int(causal), int(window),
-                _scale(d, scale), float(softcap))
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed with CUDA error {rc} "
-                           f"at q {tuple(q.shape)}, k {tuple(k.shape)}")
-    flash_attention_bwd.launches += 1
+    launch(_BWD, flash_attention_bwd, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), dout.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
+           dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           DTYPE_CODES[q.dtype], b, h, kvh, s, t, d, sp,
+           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+           *dout.stride()[:3], *lse.stride()[:2], *dq.stride()[:3],
+           *dk.stride()[:3], *dv.stride()[:3], int(causal), int(window),
+           _scale(d, scale), float(softcap),
+           detail=lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)}")
     return dq, dk, dv
-
-
-#: calls since the last reset, each three kernel launches (the main path's
-#: proof of use)
-flash_attention_bwd.launches = 0

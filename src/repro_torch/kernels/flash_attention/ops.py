@@ -25,12 +25,12 @@ takes the scores' ``scale``, None for 1/sqrt(d).  The forward is the region
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.dispatch import use_kernel
-from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+from repro_torch.kernels.flash_attention.kernel import (BWD_HEAD_DIMS, flash_attention_bwd,
                                                         flash_attention_fwd,
                                                         tma_layout_problem)
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -50,7 +50,6 @@ def first_keyless_row(s: int, t: int, window: int) -> int:
 
 def with_keyless_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: int, softcap: float,
-                      kernel: Callable[..., torch.Tensor] = flash_attention_fwd,
                       lse: Optional[torch.Tensor] = None,
                       scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's output, with the rows that see no key (which the kernel
@@ -59,8 +58,7 @@ def with_keyless_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     runs on the rows before them and the rest is a slice write: the same
     launches at every call, as a captured graph needs.  With ``lse`` (fp32
     (b, h, s)) the kernel writes the rows' log-sum-exp into it, and the
-    keyless rows get -inf.  (``kernel``: a stand-in with the launcher's
-    signature, for a test on the CPU.)"""
+    keyless rows get -inf."""
     s, t = q.shape[2], k.shape[2]
     first = first_keyless_row(s, t, window)
     mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
@@ -69,10 +67,10 @@ def with_keyless_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if first < s:
             lse[:, :, first:] = float("-inf")
     if first == s:
-        return kernel(q, k, v, **mask)
+        return flash_attention_fwd(q, k, v, **mask)
     out = torch.empty_like(q)
     if first:
-        out[:, :, :first] = kernel(q[:, :, :first], k, v, **mask)
+        out[:, :, :first] = flash_attention_fwd(q[:, :, :first], k, v, **mask)
     if t:
         b, kvh, _, d = v.shape
         mean = v.float().mean(dim=2, keepdim=True)[:, :, None]     # (b, kv, 1, 1, d)
@@ -86,35 +84,33 @@ def with_keyless_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def backward_route(device: torch.device, dtype: torch.dtype, head_dim: int) -> str:
     """Which backward the flash op takes for inputs of this device, dtype
     and head dim: ``"recompute"`` (the plain version: CPU tensors, fp32 CUDA
-    tensors, whose forward runs on the CUDA cores, and d 224 and 256, which
-    the kernel is not compiled for) or ``"kernel"`` (every other CUDA
-    tensor: the launcher runs or raises)."""
-    if device.type != "cuda" or dtype == torch.float32 or head_dim in (224, 256):
+    tensors, whose forward runs on the CUDA cores, and head dims outside
+    ``BWD_HEAD_DIMS``, which the kernel is not compiled for) or ``"kernel"``
+    (every other CUDA tensor: the launcher runs or raises)."""
+    if device.type != "cuda" or dtype == torch.float32 or head_dim not in BWD_HEAD_DIMS:
         return "recompute"
     return "kernel"
 
 
 def backward_with_keyless_rows(q, k, v, out, lse, dout, *, causal: bool, window: int,
                                softcap: float,
-                               kernel: Callable[..., Tuple[torch.Tensor, ...]]
-                               = flash_attention_bwd,
                                scale: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
     """The kernel's gradients, with those of the rows that see no key (which
     the kernel refuses) added here.  ``attention_ref`` gives such a row a
     uniform softmax over all t keys through a constant score, so each of its
     heads adds dout / t to the dv of every key of its kv head, and it adds
     nothing to dq (its own rows: zero) or dk.  As the forward, the kernel
-    runs on the rows before them, from the shapes alone.  (``kernel``: a
-    stand-in with the launcher's signature, for a test on the CPU.)"""
+    runs on the rows before them, from the shapes alone."""
     s, t = q.shape[2], k.shape[2]
     first = first_keyless_row(s, t, window)
     mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if first == s:
-        return kernel(q, k, v, out, lse, dout, **mask)
+        return flash_attention_bwd(q, k, v, out, lse, dout, **mask)
     dq = torch.zeros_like(q)
     if first:
         rows = slice(None), slice(None), slice(None, first)
-        dq[rows], dk, dv = kernel(q[rows], k, v, out[rows], lse[rows], dout[rows], **mask)
+        dq[rows], dk, dv = flash_attention_bwd(q[rows], k, v, out[rows], lse[rows],
+                                               dout[rows], **mask)
     else:
         dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     if t:

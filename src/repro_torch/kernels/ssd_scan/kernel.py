@@ -14,8 +14,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import launch
+from repro_torch.kernels.dispatch import Entry, counted, launch
 
 #: the head dim and the state sizes compiled into the library: the
 #: published Zamba2 and both smoke configs
@@ -24,21 +23,9 @@ STATE_SIZES = (16, 64)
 #: the longest chunk the kernel keeps on chip
 MAX_CHUNK = 256
 DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-             + [ctypes.c_void_p])
-
-_FN = None
-
-
-def _lib():
-    """The C entry point, built, loaded and bound at the first call only."""
-    global _FN
-    if _FN is None:
-        fn = build.load("ssd_scan").repro_ssd_scan
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+_ENTRY = Entry("ssd_scan", "repro_ssd_scan",
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+               + [ctypes.c_void_p])
 
 
 def readable(x: torch.Tensor) -> bool:
@@ -56,6 +43,7 @@ def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
     return x.stride(0), x.stride(2), x.stride(3)
 
 
+@counted
 def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
              state0: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """xdt (b, s, h, 64) and B, C (b, s, g, n) of one 16-bit dtype, dA
@@ -100,16 +88,9 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.Tens
         raise ValueError("ssd_scan takes a contiguous state0")
     y = torch.empty((b, s, h, p), dtype=xdt.dtype, device=xdt.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=xdt.device)
-    rc = launch(_lib(), xdt.device, xdt.data_ptr(), dA.data_ptr(), B.data_ptr(),
-                C.data_ptr(), state0.data_ptr(), y.data_ptr(), state.data_ptr(),
-                DTYPE_CODES[xdt.dtype], b, s, h, g, n, int(chunk),
-                *_strides(xdt), *dA.stride(), *_strides(B), *_strides(C))
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan launch failed with CUDA error {rc} at xdt "
-                           f"{tuple(xdt.shape)}, B {tuple(B.shape)}, chunk {chunk}")
-    ssd_scan.launches += 1
+    launch(_ENTRY, ssd_scan, xdt.device, xdt.data_ptr(), dA.data_ptr(), B.data_ptr(),
+           C.data_ptr(), state0.data_ptr(), y.data_ptr(), state.data_ptr(),
+           DTYPE_CODES[xdt.dtype], b, s, h, g, n, int(chunk),
+           *_strides(xdt), *dA.stride(), *_strides(B), *_strides(C),
+           detail=lambda: f"xdt {tuple(xdt.shape)}, B {tuple(B.shape)}, chunk {chunk}")
     return y, state
-
-
-#: kernel launches since the last reset (the main path's proof of use)
-ssd_scan.launches = 0

@@ -14,8 +14,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import launch
+from repro_torch.kernels.dispatch import DTYPE_CODES, Entry, counted, launch
 
 #: the block shapes compiled into the library; any other raises
 BLOCK_CONFIGS = ((64, 64, 64), (128, 128, 64), (128, 64, 128), (128, 128, 128))
@@ -23,9 +22,9 @@ BLOCK_CONFIGS = ((64, 64, 64), (128, 128, 64), (128, 64, 128), (128, 128, 128))
 MIN_SLABS_PER_SPLIT = 4
 #: K-splits aim at this many blocks on each SM
 BLOCKS_PER_SM = 2
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_ENTRY = Entry("tiled_matmul", "repro_tiled_matmul",
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+               + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def check_block(block_m: int, block_n: int, block_k: int) -> None:
@@ -55,19 +54,7 @@ def split_k_plan(m: int, n: int, k: int, block_m: int, block_n: int,
     return -(-slabs // per)
 
 
-_FN = None
 _SMS: Dict[int, int] = {}
-
-
-def _lib():
-    """The C entry point, built, loaded and bound at the first call only."""
-    global _FN
-    if _FN is None:
-        fn = build.load("tiled_matmul").repro_tiled_matmul
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
 
 
 def _sm_count(index: int) -> int:
@@ -77,6 +64,7 @@ def _sm_count(index: int) -> int:
     return sms
 
 
+@counted
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 64,
                  block_n: int = 64, block_k: int = 64) -> torch.Tensor:
     """a: (M, K), b: (K, N) -> (M, N) in a's dtype, on the card.
@@ -90,7 +78,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 64,
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError(f"tiled_matmul needs both inputs on one CUDA device; "
                          f"got {a.device} and {b.device}")
-    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODES:
+    if a.dtype != b.dtype or a.dtype not in DTYPE_CODES:
         raise TypeError(f"tiled_matmul takes float32, bfloat16 or float16 of one dtype; "
                         f"got {a.dtype} and {b.dtype}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -112,16 +100,9 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 64,
     # reuses the block only for work queued behind this call on the stream
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
           if splits > 1 else None)
-    rc = launch(_lib(), dev, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                None if ws is None else ws.data_ptr(), _DTYPE_CODES[a.dtype], m, n, k,
-                sam, sak, sbk, sbn, block_m, block_n, block_k, splits)
-    if rc != 0:
-        raise RuntimeError(f"tiled_matmul launch failed with CUDA error {rc} "
-                           f"at {(m, k, n)} blocks {(block_m, block_n, block_k)}, "
-                           f"{splits} K-splits")
-    tiled_matmul.launches += 1
+    launch(_ENTRY, tiled_matmul, dev, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+           None if ws is None else ws.data_ptr(), DTYPE_CODES[a.dtype], m, n, k,
+           sam, sak, sbk, sbn, block_m, block_n, block_k, splits,
+           detail=lambda: f"{(m, k, n)} blocks {(block_m, block_n, block_k)}, "
+                          f"{splits} K-splits")
     return out
-
-
-#: products launched since the last reset (the main path's proof of use)
-tiled_matmul.launches = 0

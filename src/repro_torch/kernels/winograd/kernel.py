@@ -24,8 +24,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import launch
+from repro_torch.kernels.dispatch import DTYPE_CODES, Entry, counted, launch
 
 PADDINGS = ("SAME", "VALID")
 #: output tiles a block, and the patch shapes (tile rows, tile columns) a
@@ -45,7 +44,6 @@ _RAW_ROW = 48
 _U_BYTES = 16 * 8 * 40 * 4
 _V_BYTES = 16 * 32 * 48
 _HALO_MAX = max((2 * th + 2) * (2 * tw + 2) for th, tw in PATCHES)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def smem_bytes(dtype: torch.dtype, image: bool = True) -> int:
@@ -129,38 +127,25 @@ def winograd_plan(b: int, H: int, W: int, cin: int, cout: int,
         smem_bytes=smem_bytes(dtype, image=True))
 
 
-_FNS = {}
-_ARGTYPES = {
-    "repro_winograd_conv": ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
-                            + [ctypes.c_void_p]),
-    "repro_winograd_tiles": ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                             + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
-    "repro_winograd_smem_bytes": [ctypes.c_int, ctypes.c_int],
-}
-
-
-def _lib(name: str):
-    """A C entry point, built, loaded and bound at its first call only."""
-    fn = _FNS.get(name)
-    if fn is None:
-        fn = getattr(build.load("winograd"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
+_CONV = Entry("winograd", "repro_winograd_conv",
+              [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+              + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_TILES = Entry("winograd", "repro_winograd_tiles",
+               [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+               + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_SMEM_BYTES = Entry("winograd", "repro_winograd_smem_bytes", [ctypes.c_int, ctypes.c_int])
 
 
 def kernel_smem_bytes(dtype: torch.dtype, image: bool = True) -> int:
     """The compiled kernel's own count of :func:`smem_bytes` (builds it)."""
-    return _lib("repro_winograd_smem_bytes")(_DTYPE_CODES[dtype], int(image))
+    return _SMEM_BYTES(DTYPE_CODES[dtype], int(image))
 
 
 def _check_inputs(name: str, a: torch.Tensor, u: torch.Tensor) -> None:
     if not (a.is_cuda and u.is_cuda) or a.device != u.device:
         raise ValueError(f"{name} needs both inputs on one CUDA device; got "
                          f"{a.device} and {u.device}")
-    if a.dtype != u.dtype or a.dtype not in _DTYPE_CODES:
+    if a.dtype != u.dtype or a.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} takes float32, bfloat16 or float16 of one dtype; got "
                         f"{a.dtype} and {u.dtype}")
     if u.dim() != 4 or tuple(u.shape[:2]) != (4, 4) or u.shape[2] != a.shape[-1]:
@@ -170,6 +155,7 @@ def _check_inputs(name: str, a: torch.Tensor, u: torch.Tensor) -> None:
         raise ValueError(f"{name} takes a contiguous u")
 
 
+@counted
 def winograd_conv(x: torch.Tensor, u: torch.Tensor,
                   padding: str = "SAME") -> torch.Tensor:
     """x (b, H, W, cin) NHWC, u = G w G^T (4, 4, cin, cout)
@@ -194,16 +180,14 @@ def winograd_conv(x: torch.Tensor, u: torch.Tensor,
     if y.numel() == 0:
         return y
     sb, sh, sw, _ = x.stride()
-    rc = launch(_lib("repro_winograd_conv"), x.device, _DTYPE_CODES[x.dtype],
-                x.data_ptr(), u.data_ptr(), y.data_ptr(), b, H, W, cin, cout,
-                sb, sh, sw, plan.pad, plan.patch[1])
-    if rc != 0:
-        raise RuntimeError(f"winograd_conv launch failed with CUDA error {rc} at x "
-                           f"{tuple(x.shape)}, u {tuple(u.shape)}, {padding}")
-    winograd_conv.launches += 1
+    launch(_CONV, winograd_conv, x.device, DTYPE_CODES[x.dtype], x.data_ptr(),
+           u.data_ptr(), y.data_ptr(), b, H, W, cin, cout, sb, sh, sw, plan.pad,
+           plan.patch[1],
+           detail=lambda: f"x {tuple(x.shape)}, u {tuple(u.shape)}, {padding}")
     return y
 
 
+@counted
 def winograd_tiles(tiles: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """tiles (b, th, tw, 4, 4, cin), u (4, 4, cin, cout)
     -> (b, th, tw, 2, 2, cout) in the tiles' dtype, on the card.
@@ -223,15 +207,7 @@ def winograd_tiles(tiles: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, th, tw, 2, 2, cout), dtype=tiles.dtype, device=tiles.device)
     if out.numel() == 0:
         return out
-    rc = launch(_lib("repro_winograd_tiles"), tiles.device, _DTYPE_CODES[tiles.dtype],
-                tiles.data_ptr(), u.data_ptr(), out.data_ptr(), b * th * tw, cin, cout)
-    if rc != 0:
-        raise RuntimeError(f"winograd_tiles launch failed with CUDA error {rc} at "
-                           f"tiles {tuple(tiles.shape)}, u {tuple(u.shape)}")
-    winograd_tiles.launches += 1
+    launch(_TILES, winograd_tiles, tiles.device, DTYPE_CODES[tiles.dtype],
+           tiles.data_ptr(), u.data_ptr(), out.data_ptr(), b * th * tw, cin, cout,
+           detail=lambda: f"tiles {tuple(tiles.shape)}, u {tuple(u.shape)}")
     return out
-
-
-#: kernel launches since the last reset (the main path's proof of use)
-winograd_conv.launches = 0
-winograd_tiles.launches = 0

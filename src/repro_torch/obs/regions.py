@@ -43,10 +43,11 @@ records.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.autograd.profiler as _profiler
@@ -142,10 +143,12 @@ def _driver() -> _Driver:
 
 
 class Capture:
-    """One capture in progress: the regions written so far, ``kept``, the
-    tensors the graph rewrites at each replay that a counter reads after it
-    (``moe_ffn``'s ``filled``), and ``counts``, the host counts each replay
-    adds (:func:`count`)."""
+    """One capture, in progress and then kept by its graph: the regions
+    written so far, and what each replay adds: ``kept``, the tensors the
+    graph rewrites that a counter reads after it (``moe_ffn``'s ``filled``),
+    ``counts``, the host counts (:func:`count`), and ``launches``, the hand
+    kernels' launches made on its stream, by public launcher
+    (:func:`repro_torch.kernels.dispatch.launch`)."""
 
     def __init__(self, step: str, stream: int):
         self.step = step
@@ -154,6 +157,7 @@ class Capture:
         self.depth = 0
         self.kept: List[Any] = []
         self.counts: List[Tuple[str, int, Dict[str, Any]]] = []
+        self.launches: Dict[Callable, int] = collections.Counter()
         self.failed: Optional[str] = None
         self._count = 0
         self._last: Optional[int] = None

@@ -49,9 +49,9 @@ eagerly; past a signature's first call it is the only way to run a
 compiled step eagerly on the card.
 
 A replay runs no Python, so the kernel wrappers' ``launches`` counters
-would not move: a graph keeps the launches its capture recorded (taken
-back off the counters: a capture launches nothing) and adds them to the
-counters at every replay.
+would not move: a launch made while a capture is in progress counts in
+the capture and not on the counter (a capture launches nothing), and the
+graph adds its capture's launches to the counters at every replay.
 
 What a call does is traced (:mod:`repro_torch.obs`): the spans
 ``jit.dispatch`` (the flatten, the signature, the input checks and copies,
@@ -69,8 +69,9 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import threading
-from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+from collections import Counter
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import torch
 import torch.autograd.profiler as _profiler
@@ -113,17 +114,6 @@ class GraphPool:
         return self._handle
 
 
-def _counted() -> Tuple[Callable, ...]:
-    """The kernel wrappers whose ``launches`` attribute counts launches."""
-    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
-                                                            flash_attention_fwd)
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
-    from repro_torch.kernels.tiled_matmul.kernel import tiled_matmul
-    from repro_torch.kernels.winograd.kernel import winograd_conv, winograd_tiles
-    return (flash_attention_fwd, flash_attention_bwd, tiled_matmul, winograd_conv,
-            winograd_tiles, ssd_scan)
-
-
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
     """True iff ``a`` and ``b`` are the same view of the same memory."""
     return (a is b or (a.data_ptr() == b.data_ptr() and a.dtype == b.dtype
@@ -156,30 +146,33 @@ def _capture_stream(dev: torch.device):
 @dataclass
 class Graph:
     """One captured signature: the graph, the tensors it reads (``None``
-    where the input leaf is no tensor), its outputs, the kernel launches
-    its capture recorded, by wrapper name, the compiled step's name and the
-    tensors its capture kept for the routing counts, and the host counts
-    each traced replay adds (:func:`repro_torch.obs.regions.count`)."""
+    where the input leaf is no tensor), its outputs, and its capture, which
+    keeps what a replay adds (:class:`repro_torch.obs.regions.Capture`): the
+    hand kernels' launches, and, while a profiler records, the routing
+    counts of the tensors it kept and the host counts."""
     graph: Any
     inputs: List[Optional[torch.Tensor]]
     out: Any
-    launches: Dict[str, int]
-    step: str = "step"
-    kept: List[Any] = field(default_factory=list)
-    counts: List[Any] = field(default_factory=list)
+    capture: regions.Capture
+
+    @property
+    def launches(self) -> Counter:
+        """The launches one replay makes, by launcher name (0 for any other)."""
+        return Counter({f.__name__: n for f, n in self.capture.launches.items()})
 
     def replay(self) -> None:
+        cap = self.capture
         if _profiler._is_profiler_enabled:
             regions.mark_begin()
             self.graph.replay()
             regions.mark_end()
-            if self.kept:
-                routing.count(self.step, self.kept)
-            regions.add_counts(self.step, self.counts)
+            if cap.kept:
+                routing.count(cap.step, cap.kept)
+            regions.add_counts(cap.step, cap.counts)
         else:
             self.graph.replay()
-        for f in _counted():
-            f.launches += self.launches[f.__name__]
+        for f, n in cap.launches.items():
+            f.launches += n
 
 
 class Jitted:
@@ -246,8 +239,6 @@ class Jitted:
     def _capture(self, args: Sequence[Any]) -> Graph:
         leaves, _ = tree_flatten(args)
         dev = _device(args)
-        counters = _counted()
-        before = [f.launches for f in counters]
         graph = torch.cuda.CUDAGraph()
         pool = None if self.pool is None else self.pool.handle()
         stream = _capture_stream(dev)
@@ -259,12 +250,8 @@ class Jitted:
         regions.warm()
         if cap.kept:
             routing.warm(cap.kept)
-        launches = {}
-        for f, n in zip(counters, before):
-            launches[f.__name__] = f.launches - n
-            f.launches = n
         return Graph(graph, [x if isinstance(x, torch.Tensor) else None for x in leaves],
-                     out, launches, self.name, cap.kept, cap.counts)
+                     out, cap)
 
     def _write_donated(self, args: Sequence[Any], out: Any) -> Any:
         """``out`` with the part of each donated argument's tree structure

@@ -21,6 +21,8 @@ from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro_torch.kernels.flash_attention import (attention_lse_ref, attention_ref,
                                                  flash_attention, flash_attention_bwd,
                                                  flash_attention_fwd)
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import check_rows_see_a_key
 from repro_torch.kernels.flash_attention.ops import (backward_route, backward_with_keyless_rows,
                                                      first_keyless_row, with_keyless_rows)
@@ -105,12 +107,12 @@ def test_flash_grad_matches_jax_grad_of_ref():
 
 @pytest.mark.parametrize("s,t,window,causal", [(4, 0, 0, True), (200, 100, 64, True),
                                                (200, 100, 64, False), (40, 8, 4, True)])
-def test_rows_without_a_key_are_refused(s, t, window, causal):
+def test_rows_without_a_key_are_refused(s, t, window, causal, monkeypatch):
     """The kernel refuses query rows that see no key (it has nothing to
     give them); the op gives them attention_ref's value, the mean of v
     (zeros at t = 0), as the reference does: on the CPU through
     attention_ref, on the card by a write after the kernel
-    (``with_keyless_rows``, run here with a stand-in for the kernel that
+    (``with_keyless_rows``, run here with a stand-in for the launcher that
     refuses such rows as it does; on the card by chip_smoke.py phase 5)."""
     with pytest.raises(ValueError, match="see no key"):
         check_rows_see_a_key(s, t, window)
@@ -126,8 +128,8 @@ def test_rows_without_a_key_are_refused(s, t, window, causal):
         check_rows_see_a_key(q.shape[2], k.shape[2], mask["window"])
         return attention_ref(q, k, v, **mask)
 
-    mine = with_keyless_rows(q, k, v, causal=causal, window=window, softcap=0.0,
-                             kernel=kernel)
+    monkeypatch.setattr(flash_ops, "flash_attention_fwd", kernel)
+    mine = with_keyless_rows(q, k, v, causal=causal, window=window, softcap=0.0)
     np.testing.assert_allclose(_np(mine), _np(want), rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(_np(out[:, :, first:]), np.broadcast_to(
         _np(v).mean(axis=2, keepdims=True).repeat(2, axis=1) if t else 0.0,
@@ -177,7 +179,7 @@ def _jax_grads(jq, jk, jv, g, mask):
 @pytest.mark.parametrize("s,t,window,causal", [(200, 100, 64, True), (200, 100, 64, False),
                                                (40, 8, 4, True), (4, 0, 0, True),
                                                (64, 64, 0, True)])
-def test_the_keyless_rows_gradient_is_added_in_the_op(s, t, window, causal):
+def test_the_keyless_rows_gradient_is_added_in_the_op(s, t, window, causal, monkeypatch):
     """Rows that see no key get a uniform softmax over all t keys through a
     constant score in attention_ref: dv gains their dout / t for every key,
     dq and dk nothing.  The op adds that around the kernel, which runs on
@@ -187,7 +189,8 @@ def test_the_keyless_rows_gradient_is_added_in_the_op(s, t, window, causal):
     g = torch.from_numpy(np.random.default_rng(5).standard_normal(q.shape).astype(np.float32))
     mask = dict(causal=causal, window=window, softcap=0.0)
     out, lse = attention_ref(q, k, v, **mask), attention_lse_ref(q, k, **mask)
-    mine = backward_with_keyless_rows(q, k, v, out, lse, g, **mask, kernel=_bwd_stand_in)
+    monkeypatch.setattr(flash_ops, "flash_attention_bwd", _bwd_stand_in)
+    mine = backward_with_keyless_rows(q, k, v, out, lse, g, **mask)
     for a, want in zip(mine, _jax_grads(jq, jk, jv, g, mask)):
         assert tuple(a.shape) == want.shape
         np.testing.assert_allclose(_np(a), _np(want), rtol=1e-5, atol=1e-5)
@@ -240,20 +243,36 @@ def test_the_capture_emits_the_lse_op_and_the_backward_kernels_products():
                         torch.ops.repro_torch.flash_attention_bwd.default]
 
 
-def test_a_graph_replay_counts_the_backward_kernels_launches():
-    """A compiled step's replay adds the launches its capture recorded, the
-    backward wrapper's among them, as it does the forward's."""
+def test_a_graph_replay_counts_the_backward_kernels_launches(monkeypatch):
+    """The forward's and the backward's launches made while a compiled step
+    is captured land in its capture, not on their counters; each replay of
+    its graph adds them (here 80 and 40, a graphed qwen1.5-4b step's), by
+    their launchers' names."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.dispatch import launch
+    from repro_torch.obs import regions
     from repro_torch.runtime import jit
 
     class _Stub:
         def replay(self):
             pass
 
-    counted = jit._counted()
-    assert flash_attention_bwd in counted and flash_attention_fwd in counted
-    recorded = {f.__name__: 0 for f in counted}
-    recorded.update(flash_attention_fwd=80, flash_attention_bwd=40)
+    for entry in (flash_kernel._FWD, flash_kernel._BWD):
+        monkeypatch.setattr(entry, "fn", lambda *args: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    cap = regions.Capture("train", 7)
+    monkeypatch.setattr(regions, "capturing", lambda: cap)
     before = flash_attention_fwd.launches, flash_attention_bwd.launches
-    jit.Graph(_Stub(), [], None, recorded).replay()
+    for entry, launcher, n in ((flash_kernel._FWD, flash_attention_fwd, 80),
+                               (flash_kernel._BWD, flash_attention_bwd, 40)):
+        for _ in range(n):
+            launch(entry, launcher, torch.device("cuda"), detail=lambda: "")
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == before
+    graph = jit.Graph(_Stub(), [], None, cap)
+    assert graph.launches == {"flash_attention_fwd": 80, "flash_attention_bwd": 40}
+    graph.replay()
+    graph.replay()
     assert (flash_attention_fwd.launches - before[0],
-            flash_attention_bwd.launches - before[1]) == (80, 40)
+            flash_attention_bwd.launches - before[1]) == (160, 80)

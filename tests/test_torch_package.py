@@ -1,12 +1,15 @@
 """The port's independence and device rules: ``repro_torch`` and
 ``chip_smoke.py`` never import ``jax`` or ``repro``, entry points default to
-CUDA and raise without it, and a kernel wrapper never falls back to its
-plain version on a CUDA tensor."""
+CUDA and raise without it, a kernel wrapper never falls back to its plain
+version on a CUDA tensor, and every launcher binds, launches, checks and
+counts through one seam (``kernels/dispatch.py``)."""
 import ast
+import ctypes
 import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -15,13 +18,15 @@ import repro_torch
 from repro_torch import config as C
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.dispatch import Entry, counted, launch, use_kernel
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.tiled_matmul import tiled_matmul
 from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
 from repro_torch.launch import serve
 from repro_torch.models.lenet import LeNet
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.obs import regions
+from repro_torch.runtime import jit
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -226,7 +231,80 @@ def test_build_names_libraries_by_source_hash():
 
 
 def test_build_kernels_name_every_source():
-    assert sorted(build.KERNELS) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert build.KERNELS == tuple(sorted(p.stem for p in build.CSRC.glob("*.cu")))
+    assert {"tiled_matmul", "winograd", "flash_attention", "flash_attention_bwd",
+            "ssd_scan"} <= set(build.KERNELS)
+
+
+class _FakeFn:
+    """A C function as ctypes hands it out: typed by attributes, returning
+    an error code."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.rc
+
+
+@counted
+def _fake_launcher():
+    pass
+
+
+@pytest.fixture
+def fake_entry(monkeypatch):
+    """An entry point of a fake library, on a fake stream 7 of the card,
+    with its loads counted."""
+    fn, loads = _FakeFn(), []
+    monkeypatch.setattr(build, "load", lambda name: loads.append(name)
+                        or SimpleNamespace(repro_fake=fn))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(_fake_launcher, "launches", 0)
+    return Entry("fake", "repro_fake", [ctypes.c_int] * 2), fn, loads
+
+
+def test_an_entry_is_bound_at_its_first_call_only(fake_entry):
+    entry, fn, loads = fake_entry
+    assert loads == [] and entry.fn is None
+    assert entry(1, 2) == 0 and entry(3, 4) == 0
+    assert loads == ["fake"] and entry.fn is fn and fn.calls == [(1, 2), (3, 4)]
+    assert fn.argtypes == [ctypes.c_int] * 2 and fn.restype is ctypes.c_int
+
+
+def test_a_launch_runs_on_the_current_stream_and_counts_once(fake_entry):
+    entry, fn, _ = fake_entry
+    launch(entry, _fake_launcher, torch.device("cuda"), 1, 2, detail=lambda: "")
+    assert fn.calls == [(1, 2, 7)] and _fake_launcher.launches == 1
+
+
+def test_a_failed_launch_raises_naming_the_kernel_and_counts_nothing(fake_entry):
+    entry, fn, _ = fake_entry
+    fn.rc = 700
+    with pytest.raises(RuntimeError, match=r"_fake_launcher launch failed with CUDA "
+                                           r"error 700 at q \(1, 2\)"):
+        launch(entry, _fake_launcher, torch.device("cuda"), 1, 2,
+               detail=lambda: "q (1, 2)")
+    assert _fake_launcher.launches == 0
+
+
+def test_a_launch_in_a_capture_counts_at_each_replay(fake_entry, monkeypatch):
+    """A launch made while a compiled step is captured lands in the capture,
+    not on the counter; each replay of the graph adds it."""
+    entry, _, _ = fake_entry
+    cap = regions.Capture("step", 7)
+    monkeypatch.setattr(regions, "capturing", lambda: cap)
+    for _ in range(3):
+        launch(entry, _fake_launcher, torch.device("cuda"), detail=lambda: "")
+    assert _fake_launcher.launches == 0 and cap.launches == {_fake_launcher: 3}
+    monkeypatch.setattr(regions, "capturing", lambda: None)
+    graph = jit.Graph(SimpleNamespace(replay=lambda: None), [], None, cap)
+    assert graph.launches == {"_fake_launcher": 3} and graph.launches["other"] == 0
+    graph.replay()
+    graph.replay()
+    assert _fake_launcher.launches == 6
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):

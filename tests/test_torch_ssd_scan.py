@@ -208,6 +208,29 @@ def test_a_capture_of_the_op_holds_the_loops_products():
     assert len(caps[1].hlo_text.splitlines()) == len(caps[0].hlo_text.splitlines())
 
 
-def test_graph_replays_count_the_kernels_launches():
+def test_graph_replays_count_the_kernels_launches(monkeypatch):
+    """A scan launched while a compiled step is captured counts in its
+    capture, not on ``ssd_scan.launches``; each replay of its graph adds it."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.dispatch import launch
+    from repro_torch.kernels.ssd_scan import kernel
+    from repro_torch.obs import regions
     from repro_torch.runtime import jit
-    assert ssd_scan in jit._counted()
+
+    class _Stub:
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(kernel._ENTRY, "fn", lambda *args: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    cap = regions.Capture("prefill", 7)
+    monkeypatch.setattr(regions, "capturing", lambda: cap)
+    before = ssd_scan.launches
+    for _ in range(81):
+        launch(kernel._ENTRY, ssd_scan, torch.device("cuda"), detail=lambda: "")
+    assert ssd_scan.launches == before and cap.launches == {ssd_scan: 81}
+    graph = jit.Graph(_Stub(), [], None, cap)
+    graph.replay()
+    assert ssd_scan.launches == before + 81 and graph.launches["ssd_scan"] == 81

@@ -272,7 +272,7 @@ def test_a_replay_launches_only_its_graph_without_a_profiler(cuda, monkeypatch):
     monkeypatch.setattr(torch.cuda, "_sleep", lambda n: calls.append(n))
     monkeypatch.setattr(routing, "count", lambda *a: calls.append(a))
     server.generate(batch, max_new_tokens=NEW_TOKENS)
-    assert server._decode.last.kept and not calls
+    assert server._decode.last.capture.kept and not calls
 
 
 @pytest.mark.cuda
