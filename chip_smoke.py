@@ -8,7 +8,9 @@ each against its plain PyTorch version on the card (flash attention at head
 dims 16 to 256; its 16-bit backward against autograd through
 ``attention_ref`` at d 16 to 128, phase 5b; the SSD chunk scan against the
 fp32 loop at the Zamba2 cell's shape, timed, and launched once a layer by
-a full-width prefill, phase 5c), then drives the port's three paths, each with every
+a full-width prefill, phase 5c; the two Mamba2 mixer kernels against the
+plain chains they replace at that shape, timed beside them and their bytes
+bound, and a prefill mixer off 8 positions, phase 5d), then drives the port's three paths, each with every
 kernel's launch count set to 0 just before and read just after:
 
 * LeNet — ``repro_torch.lenet_repro.run``, the paper's experiments: train
@@ -846,6 +848,215 @@ def ssd_phase():
             "max_abs_err": errs[f"{SSD_ARCH} bf16"]["y_abs"], "errors": errs, "ms": t_k,
             "device_ms": t_d, "served_shape_ms": times[SSD_SERVED], "plain_ms": t_plain,
             "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+
+
+def _mixer_layer(b, s, d_inner, groups, n, d_model=None, seed=0):
+    """A Mamba2 layer's mixer of these widths on the card, bf16:
+    the in_proj output at unit scale and the parameters (Mamba2's decays and
+    steps, random conv weights, D and gammas; with ``d_model`` the two
+    projections too)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    heads, ch = d_inner // 64, d_inner + 2 * groups * n
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+    rand = lambda *shape: torch.rand(*shape, generator=gen, device="cuda")  # noqa: E731
+    params = {"conv_w": randn(4, ch, scale=0.5), "conv_b": randn(ch, scale=0.1),
+              "dt_bias": torch.log(torch.expm1(0.001 + 0.1 * rand(heads))),
+              "a_log": torch.log(1 + 15 * rand(heads)), "d_skip": 1 + randn(heads, scale=0.1),
+              "norm": randn(d_inner, scale=0.1)}
+    if d_model:
+        params["in_proj"] = randn(d_model, d_inner + ch + heads, scale=d_model ** -0.5)
+        params["out_proj"] = randn(d_inner, d_model, scale=d_inner ** -0.5)
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    return randn(b, s, d_inner + ch + heads).to(torch.bfloat16), params
+
+
+def _mixer_check(cfg, b, s, groups, where):
+    """Both Mamba2 mixer kernels on one bf16 layer of ``cfg``'s widths at
+    (b, s) in ``groups`` groups, each against the plain chain it replaces
+    in fp32 and in bf16: within one bf16 rounding of the fp32 chain and,
+    over the whole output, no further from it than the bf16 chain; dA
+    within 1e-5, the cache rows bit for bit; one launch each.  Returns the
+    errors, both ops' arguments and the two plain chains."""
+    import torch
+    from repro_torch.kernels.ssm_mixer import (scan_inputs, ssm_conv_in, ssm_conv_in_op,
+                                               ssm_gated_norm, ssm_gated_norm_op)
+    from repro_torch.models import ssm
+    d_inner, n = cfg.d_model * cfg.ssm_expand, cfg.ssm_state
+    heads = d_inner // 64
+    zxbcdt, params = _mixer_layer(b, s, d_inner, groups, n)
+    p32 = {k: v.float() for k, v in params.items()}
+    conv_args = (zxbcdt, params["conv_w"], params["conv_b"], params["dt_bias"],
+                 params["a_log"], d_inner)
+
+    def plain_in():
+        out = ssm._mixer_inputs(params, cfg, zxbcdt, groups)
+        return out, out[-1][:, -(cfg.ssm_conv - 1):].clone()
+
+    before = ssm_conv_in.launches
+    xbc, dA, xh, tail = ssm_conv_in_op(*conv_args)
+    torch.cuda.synchronize()
+    check(ssm_conv_in.launches == before + 1, "ssm_conv_in did not count its launch")
+    got = scan_inputs(xbc, dA, d_inner, groups)
+    (z16, xh16, xdt16, _, B16, C16, _), _ = plain_in()
+    _, xh32, xdt32, dA32, B32, C32, raw = ssm._mixer_inputs(p32, cfg, zxbcdt.float(), groups)
+    errs = {}
+    for name, k, plain, want in (("xdt", got[0], xdt16, xdt32), ("B", got[2], B16, B32),
+                                 ("C", got[3], C16, C32),
+                                 ("xh", xh, xh16.flatten(-2), xh32.flatten(-2))):
+        top = float(want.abs().max())
+        errs[name] = {"abs": float((k.float() - want).abs().max()),
+                      "kernel": float((k.float() - want).abs().max()) / top,
+                      "plain": float((plain.float() - want).abs().max()) / top,
+                      "kernel_norm": float((k.float() - want).norm() / want.norm()),
+                      "plain_norm": float((plain.float() - want).norm() / want.norm())}
+    errs["dA"] = float(((got[1] - dA32).abs() / dA32.abs().clamp_min(1e-30)).max())
+    check(torch.equal(tail, raw[:, -3:].to(torch.bfloat16)),
+          f"ssm_conv_in's cache rows differ at {where}'s shape")
+    del xdt16, B16, C16, xh32, xdt32, dA32, B32, C32, raw, got, xbc, dA, tail
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    y = torch.randn(b, s, heads, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    gate_args = (y, xh, zxbcdt, params["d_skip"], params["norm"], groups, cfg.norm_eps)
+    before = ssm_gated_norm.launches
+    out = ssm_gated_norm_op(*gate_args)
+    torch.cuda.synchronize()
+    check(ssm_gated_norm.launches == before + 1, "ssm_gated_norm did not count its launch")
+
+    def plain_out():
+        return ssm._mixer_gate(params, cfg, y, xh16, z16, groups)
+
+    want = ssm._mixer_gate(p32, cfg, y.float(), xh.float().unflatten(-1, (heads, 64)),
+                           zxbcdt[..., :d_inner].float(), groups)
+    plain = plain_out()
+    top = float(want.abs().max())
+    errs["gated"] = {"abs": float((out.float() - want).abs().max()),
+                     "kernel": float((out.float() - want).abs().max()) / top,
+                     "plain": float((plain.float() - want).abs().max()) / top,
+                     "kernel_norm": float((out.float() - want).norm() / want.norm()),
+                     "plain_norm": float((plain.float() - want).norm() / want.norm())}
+    del want, plain, out
+    print(f"  {where} b{b} s{s} d_inner {d_inner}, {groups} group(s) of n {n} (bf16):")
+    for name, e in errs.items():
+        if name != "dA":
+            print(f"    {name}: {e['kernel']:.2e} of max|fp32 chain| (the bf16 chain "
+                  f"{e['plain']:.2e}), over the whole {e['kernel_norm']:.2e} (bf16 chain "
+                  f"{e['plain_norm']:.2e})")
+            check(e["kernel"] <= 2.0 ** -8 + 1e-5 and e["kernel_norm"] <= e["plain_norm"],
+                  f"the mixer kernels' {name} at {where}'s shape is further from the fp32 "
+                  f"chain than one bf16 rounding or than the bf16 chain: {e}")
+    print(f"    dA: {errs['dA']:.2e} of itself at most; the cache rows bit for bit")
+    check(errs["dA"] <= 1e-5, f"ssm_conv_in's dA is {errs['dA']:.2e} off the fp32 chain at "
+          f"{where}'s shape")
+    return errs, conv_args, gate_args, plain_in, plain_out
+
+
+def ssm_mixer_phase():
+    """Phase 5d: the two Mamba2 mixer kernels (``csrc/ssm_mixer.cu``) at the
+    shape phase 20's zamba2-7b FULL prefill gives them (b 4, s 2,048,
+    d_inner 7,168, one group of 64) and at the benchmark's zamba2 shape (b
+    4, s 4,088, 2 groups), bf16, each against the plain chain it replaces
+    in fp32 and in bf16 (:func:`_mixer_check`); at the cell's shape timed
+    (CUDA events and the profiler's device time) beside that chain and its
+    bytes bound; then one layer's whole prefill mixer at 4,087 positions
+    (off 8) and at 4,088, counting the copies the scan makes of its inputs.
+    Their launches on the main path are phase 20's."""
+    import torch
+    from repro_torch import config as C
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import ops as scan_ops
+    from repro_torch.kernels.ssm_mixer import ssm_conv_in_op, ssm_gated_norm_op
+    from repro_torch.models import ssm
+    phase("5d. the Mamba2 mixer kernels against the plain chains at the zamba2 shapes")
+    for line in build.build_log("ssm_mixer").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ssm_mixer: {line.strip()}")
+    torch.backends.cudnn.allow_tf32 = False
+    sb, ss, _, sg = _ssd_served_shape()[:4]
+    served_errs = _mixer_check(C.get(SSD_SERVED).full, sb, ss, sg, SSD_SERVED)[0]
+    cfg = C.get(SSD_ARCH).full
+    b, s = SSD_SHAPE[:2]
+    d_inner, groups, n = cfg.d_model * cfg.ssm_expand, cfg.ssm_ngroups, cfg.ssm_state
+    heads, ch = d_inner // 64, d_inner + 2 * groups * n
+    errs, conv_args, gate_args, plain_in, plain_out = _mixer_check(cfg, b, s, groups, SSD_ARCH)
+
+    # each input byte read once and each output byte written once: the xBC
+    # and dt columns in, xbc (padded), xh, dA and the cache rows out; y, xh
+    # and z in, the normed gate out
+    rows, gn = b * s, groups * n
+    conv_bytes = (rows * (ch + heads) + b * ch * (-(-s // 8) * 8) + rows * d_inner
+                  + b * 3 * ch) * 2 + b * heads * s * 4
+    gate_bytes = rows * d_inner * 2 * 4
+    timing = {}
+    for name, kern, plain, nbytes, match in (
+            ("ssm_conv_in", lambda: ssm_conv_in_op(*conv_args), plain_in, conv_bytes,
+             "conv_in_kernel"),
+            ("ssm_gated_norm", lambda: ssm_gated_norm_op(*gate_args), plain_out, gate_bytes,
+             "gated_norm_kernel")):
+        bound, bound_by = _bound(0.0, nbytes, PEAK_BF16_FLOPS)
+        t_k, t_d = _time_ms(kern), _device_ms(kern, match=match)
+        t_p = _time_ms(plain, reps=5, warmup=1)
+        t_pd, ops = _device_events(plain, n=3)
+        share = "not measured" if t_d is None else f"{100 * bound / t_d:.1f}% of its bound"
+        print(f"  {name} a layer: kernel {t_k:.4f} ms (CUDA events), device {_fmt_ms(t_d)}, "
+              f"{share} ({bound:.4f} ms, {bound_by}: {nbytes / 1e6:.1f} MB); the plain chain "
+              f"{t_p:.4f} ms, device {_fmt_ms(t_pd)} in {ops} device ops; "
+              f"{cfg.num_layers} layers: kernel {t_k * cfg.num_layers:.1f} ms, plain "
+              f"{t_p * cfg.num_layers:.1f} ms a prefill; {CARD}")
+        timing[name] = {"ms": t_k, "device_ms": t_d, "plain_ms": t_p, "plain_device_ms": t_pd,
+                        "plain_ops": ops, "bound_ms": bound, "bound_by": bound_by}
+    del conv_args, gate_args, plain_in, plain_out
+
+    # one layer's whole prefill mixer at a length off 8 and at the cell's:
+    # the copies the scan makes of xdt, B and C (the parent's conv output
+    # at 4,087 positions was not readable as it lay, 234 MB copied a layer)
+    made = []
+    real = scan_ops.positions_major
+
+    def counting(t):
+        out = real(t)
+        made.append(out is not t)
+        return out
+    scan_ops.positions_major = counting
+    layer_ms = {}
+    try:
+        for length in (s - 1, s):
+            x = torch.randn(b, length, cfg.d_model, device="cuda").to(torch.bfloat16)
+            _, lp = _mixer_layer(b, 8, d_inner, groups, n, cfg.d_model, seed=length)
+            run = lambda: ssm.ssm_prefill(lp, cfg, x, groups, cfg.ssm_chunk)  # noqa: E731
+            with torch.no_grad():
+                made.clear()
+                run()
+                copies = sum(made)
+                layer_ms[length] = _time_ms(run, reps=5, warmup=1)
+            check(copies == 0, f"the scan copied {copies} of its inputs at {length} positions")
+            print(f"  one layer's prefill mixer (the projections, the kernels and the scan) "
+                  f"at {length} positions: {layer_ms[length]:.3f} ms; the scan copied none of "
+                  f"xdt, B, C")
+            del x, lp
+    finally:
+        scan_ops.positions_major = real
+    # what the copies cost where they were made: xdt, B and C laid out as
+    # the parent's conv output lies at 4,087 positions
+    odd = torch.empty(b, ch, s - 1, dtype=torch.bfloat16, device="cuda").transpose(1, 2)
+    views = (odd[..., :d_inner].unflatten(-1, (heads, 64)),
+             odd[..., d_inner:d_inner + gn].unflatten(-1, (groups, n)),
+             odd[..., d_inner + gn:].unflatten(-1, (groups, n)))
+    t_copy = _time_ms(lambda: [real(v) for v in views], reps=10, warmup=2)
+    print(f"  the parent's copies into the scan's layout at {s - 1} positions: {t_copy:.4f} ms "
+          f"a layer, {t_copy * cfg.num_layers:.1f} ms a prefill (now none)")
+    del odd, views
+    worst = {"ssm_conv_in": max(errs[k]["abs"] for k in ("xdt", "B", "C", "xh")),
+             "ssm_gated_norm": errs["gated"]["abs"]}
+    return [{"name": name, "route": "cuda", "source": "src/repro_torch/csrc/ssm_mixer.cu",
+             "replaces": "none (the reference writes the mixer in jnp)",
+             "max_abs_err": worst[name], "errors": errs, "ms": t["ms"], "device_ms": t["device_ms"],
+             "plain_ms": t["plain_ms"], "plain_device_ms": t["plain_device_ms"],
+             "library_ms": None, "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "served_shape_errors": served_errs, "off8_layer_ms": layer_ms,
+             "off8_copy_ms_before": t_copy}
+            for name, t in timing.items()]
 
 
 def main_path_phase():
@@ -2730,9 +2941,9 @@ def _flash_per_prefill(cfg):
 
 
 def _ssd_per_prefill(cfg):
-    """The SSD scan kernel's launches in one 16-bit prefill on the card: one
-    per Mamba2 layer of the hybrids (every layer of their stacks), none
-    elsewhere."""
+    """The SSD scan kernel's launches in one 16-bit prefill on the card, and
+    each mixer kernel's: one per Mamba2 layer of the hybrids (every layer of
+    their stacks), none elsewhere."""
     return cfg.num_layers if cfg.family in ("hybrid", "zamba2") else 0
 
 
@@ -2750,6 +2961,7 @@ def _serve_full(arch, smoke=False):
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssm_mixer import ssm_conv_in, ssm_gated_norm
     from repro_torch.kernels.tiled_matmul import tiled_matmul
     from repro_torch.kernels.winograd import winograd_conv, winograd_tiles
     from repro_torch.launch import serve
@@ -2760,7 +2972,7 @@ def _serve_full(arch, smoke=False):
     before = torch.cuda.memory_allocated() / 1e9
     kerns = {"tiled_matmul": tiled_matmul, "winograd_conv": winograd_conv,
              "winograd_tiles": winograd_tiles, "flash_attention": flash_attention_fwd,
-             "ssd_scan": ssd_scan}
+             "ssd_scan": ssd_scan, "ssm_conv_in": ssm_conv_in, "ssm_gated_norm": ssm_gated_norm}
     for kern in kerns.values():
         kern.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2780,6 +2992,12 @@ def _serve_full(arch, smoke=False):
     check(launches["ssd_scan"] == ssd_in_graph == _ssd_per_prefill(cfg),
           f"{arch}: ssd_scan launched {launches['ssd_scan']} times in the first call's prefill "
           f"and {ssd_in_graph} in the prefill's graph, expected {_ssd_per_prefill(cfg)}")
+    mixer_in_graph = {k: server._prefill.last.launches[k]
+                      for k in ("ssm_conv_in", "ssm_gated_norm")}
+    for k, n in mixer_in_graph.items():
+        check(launches[k] == n == _ssd_per_prefill(cfg),
+              f"{arch}: {k} launched {launches[k]} times in the first call's prefill and {n} "
+              f"in the prefill's graph, expected {_ssd_per_prefill(cfg)}")
     weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     check(tokens.shape[0] == SERVE_BATCH and 1 <= tokens.shape[1] <= SERVE_NEW
@@ -2820,6 +3038,7 @@ def _serve_full(arch, smoke=False):
            "decode_step_ms": warm.decode_s * 1e3 / steps,
            "peak_gb": peak, "peak_first_call_gb": peak_first, "launches": launches,
            "flash_per_prefill": per_prefill, "ssd_in_prefill_graph": ssd_in_graph,
+           "mixer_in_prefill_graph": mixer_in_graph["ssm_conv_in"],
            "prefill_busy_ms": busy,
            "prefill_window_ms": window.get("ms"), "decode_busy_ms": dbusy,
            "decode_window_ms": dwindow.get("ms")}
@@ -3725,6 +3944,7 @@ def main() -> int:
         flash_err = flash_phase()
         flash_bwd = flash_bwd_phase()
         ssd = ssd_phase()
+        mixer = ssm_mixer_phase()
         launches, pps, lenet = main_path_phase()
         kernels = timing_phase(launches, pps, mm_err, wino_errs)
         step = step_phase()
@@ -3775,6 +3995,11 @@ def main() -> int:
         ssd["launches_in_graph"] = {
             f"one {SSD_SERVED} FULL prefill": families[SSD_SERVED]["ssd_in_prefill_graph"]}
         kernels.append(ssd)
+        for k in mixer:
+            k["launches"] = families[SSD_SERVED]["launches"][k["name"]]
+            k["launches_in_graph"] = {
+                f"one {SSD_SERVED} FULL prefill": families[SSD_SERVED]["mixer_in_prefill_graph"]}
+            kernels.append(k)
         flash["launches_in_graph"] = {
             f"one {SERVE_ARCH} FULL prefill": graphs["flash_in_prefill_graph"],
             f"one {TRAIN_ARCH} FULL train step": train["graphed"]["full"]["flash_in_graph"]}

@@ -8,7 +8,8 @@ counterpart of ``repro.core.capture``.  Three steps:
    update all land in one aten graph, and each hand-kernel op
    (``repro_torch::tiled_matmul``, ``repro_torch::conv3x3_winograd``,
    ``repro_torch::winograd_tiles``, ``repro_torch::flash_attention``,
-   ``repro_torch::ssd_scan``) is one node in it, forward and backward.
+   ``repro_torch::ssd_scan``, ``repro_torch::ssm_conv_in``,
+   ``repro_torch::ssm_gated_norm``) is one node in it, forward and backward.
 2. Every node is emitted as HLO text in the subset that
    :func:`~repro_torch.core.hlo_ir.parse_hlo_module` reads: one
    instruction per aten or custom-op node, ``parameter``s for the inputs,
@@ -25,7 +26,8 @@ Winograd tiles op becomes an elementwise input transform, a ``dot`` over the
 Winograd conv op the reference's unfused program around those three (pads,
 tile gather, reassembly); the flash-attention
 op a q.k^T ``dot`` batched over the kv heads, an ``exponential`` and a p.v
-``dot``; the SSD scan op its plain version's chunk loop, inlined.  A step traced on DTensors (one rank's program on a mesh) holds
+``dot``; the SSD scan op and the two Mamba2 mixer ops their plain
+versions (the chunk loop; the conv, dt and gate chains), inlined.  A step traced on DTensors (one rank's program on a mesh) holds
 functional collectives: ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
 ``all_reduce`` and ``all_to_all_single`` (and DTensor's
 ``shard_dim_alltoall``) become ``all-gather``, ``reduce-scatter``,
@@ -500,31 +502,35 @@ def _flash_attention_bwd(em: _Emitter, node: torch.fx.Node) -> None:
     em.parts[node] = {0: em.inst(f"{n}.dq", hlo_type(dq_v), "bitcast", [dq]), 1: dk, 2: dv}
 
 
-def _ssd_scan(em: _Emitter, node: torch.fx.Node) -> None:
-    """The SSD scan op as the plain version's aten graph
-    (:func:`~repro_torch.kernels.ssd_scan.ref.ssd_scan_ref`, traced on the
-    node's fake operands), inlined under the node's name: the same
-    products and elementwise work a capture of the loop holds.  Two parts."""
-    from torch.fx.experimental.proxy_tensor import make_fx
-
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-    args = [em.val(a) if isinstance(a, torch.fx.Node) else a for a in node.args]
-    sub = make_fx(ssd_scan_ref, tracing_mode="fake")(*args)
-    inputs = iter(node.args)
-    outer, em.gm = em.gm, sub
-    try:
-        for n in sub.graph.nodes:
-            if n.op == "placeholder":
-                arg = next(inputs)
-                if isinstance(arg, torch.fx.Node):
-                    em.names[n] = em.names[arg]
-            elif n.op == "output":
-                em.parts[node] = {i: em.names[o] for i, o in enumerate(n.args[0])}
-            else:
-                n.name = f"{node.name}.{n.name}"
-                em._emit(n)
-    finally:
-        em.gm = outer
+def _plain(fn: Callable) -> Callable[[_Emitter, torch.fx.Node], None]:
+    """A handler emitting a hand-kernel op as its plain version's aten graph
+    (``fn``, traced on the node's fake operands), inlined under the node's
+    name: the same products and elementwise work a capture of the plain
+    code holds.  One part per output of a tuple."""
+    def emit(em: _Emitter, node: torch.fx.Node) -> None:
+        from torch.fx.experimental.proxy_tensor import make_fx
+        args = [em.val(a) if isinstance(a, torch.fx.Node) else a for a in node.args]
+        sub = make_fx(fn, tracing_mode="fake")(*args)
+        inputs = iter(node.args)
+        outer, em.gm = em.gm, sub
+        try:
+            for n in sub.graph.nodes:
+                if n.op == "placeholder":
+                    arg = next(inputs)
+                    if isinstance(arg, torch.fx.Node):
+                        em.names[n] = em.names[arg]
+                elif n.op == "output":
+                    out = n.args[0]
+                    if isinstance(out, (tuple, list)):
+                        em.parts[node] = {i: em.names[o] for i, o in enumerate(out)}
+                    else:
+                        em.names[node] = em.names[out]
+                else:
+                    n.name = f"{node.name}.{n.name}"
+                    em._emit(n)
+        finally:
+            em.gm = outer
+    return emit
 
 
 def _group_ranks(group: Any) -> List[int]:
@@ -593,6 +599,7 @@ def _register_kernel_ops() -> None:
     """The hand-kernel ops are registered when their modules import."""
     import repro_torch.kernels.flash_attention.ops  # noqa: F401
     import repro_torch.kernels.ssd_scan.ops  # noqa: F401
+    import repro_torch.kernels.ssm_mixer.ops  # noqa: F401
     import repro_torch.kernels.tiled_matmul.ops  # noqa: F401
     import repro_torch.kernels.winograd.ops  # noqa: F401
     _SPECIAL[torch.ops.repro_torch.tiled_matmul.default] = _dot
@@ -601,7 +608,11 @@ def _register_kernel_ops() -> None:
     _SPECIAL[torch.ops.repro_torch.flash_attention.default] = _flash_attention
     _SPECIAL[torch.ops.repro_torch.flash_attention_lse.default] = _flash_attention_lse
     _SPECIAL[torch.ops.repro_torch.flash_attention_bwd.default] = _flash_attention_bwd
-    _SPECIAL[torch.ops.repro_torch.ssd_scan.default] = _ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssm_mixer.ref import conv_in_ref, gated_norm_ref
+    _SPECIAL[torch.ops.repro_torch.ssd_scan.default] = _plain(ssd_scan_ref)
+    _SPECIAL[torch.ops.repro_torch.ssm_conv_in.default] = _plain(conv_in_ref)
+    _SPECIAL[torch.ops.repro_torch.ssm_gated_norm.default] = _plain(gated_norm_ref)
     import repro_torch.distributed.pipeline  # noqa: F401  (the ring permute op)
     _SPECIAL[torch.ops.repro_torch.ring_permute.default] = _ring_permute
     c10d = torch.ops._c10d_functional

@@ -11,7 +11,9 @@ Kernels: tiled_matmul (block-configurable GEMM — the section V GEMM case
 study), winograd (F(2x2,3x3) conv — the paper's headline cuDNN algorithm),
 flash_attention (online-softmax attention forward — the LMs' prefill — and
 its 16-bit backward, which the training step runs), ssd_scan (Mamba2's
-chunked scan of a prefill, which the reference runs as ``lax.scan``).
+chunked scan of a prefill, which the reference runs as ``lax.scan``),
+ssm_mixer (the pointwise work of a Mamba2 prefill mixer on each side of
+that scan: the causal conv, SiLU and dt; the skip, gate and grouped norm).
 
 A new kernel is its package, its ``csrc/<name>.cu`` (which
 ``build.KERNELS`` lists by itself) and an emitter for its op in

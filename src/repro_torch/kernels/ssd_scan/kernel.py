@@ -38,6 +38,13 @@ def readable(x: torch.Tensor) -> bool:
             and all(x.shape[d] == 1 or x.stride(d) * size % 16 == 0 for d in (0, 2, 3)))
 
 
+def padded(s: int) -> int:
+    """The length of each feature's row of ``s`` positions in the layout
+    :func:`readable` names: ``s`` rounded up to 8 positions, 16 bytes of a
+    16-bit type."""
+    return -(-s // 8) * 8
+
+
 def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
     """x's strides but the positions' (unit, as :func:`readable` holds)."""
     return x.stride(0), x.stride(2), x.stride(3)

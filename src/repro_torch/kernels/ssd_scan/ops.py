@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.kernels.dispatch import use_kernel
 from repro_torch.kernels.ssd_scan.kernel import (DTYPE_CODES, HEAD_DIM, MAX_CHUNK,
-                                                 STATE_SIZES, readable, ssd_scan)
+                                                 STATE_SIZES, padded, readable, ssd_scan)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 
@@ -53,7 +53,7 @@ def positions_major(x: torch.Tensor) -> torch.Tensor:
     if readable(x):
         return x
     b, s, k, d = x.shape
-    rows = x.new_empty((b, k, d, -(-s // 8) * 8))[..., :s]
+    rows = x.new_empty((b, k, d, padded(s)))[..., :s]
     return rows.permute(0, 3, 1, 2).copy_(x)
 
 

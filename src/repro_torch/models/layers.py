@@ -160,6 +160,23 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     return normed * (1.0 + gamma.float()).to(x.dtype)
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, groups: int,
+               eps: float) -> torch.Tensor:
+    """The RMS norm of y * silu(z) (..., d), over each of ``groups`` groups
+    of channels, with fp32 statistics and the ``(1 + gamma)`` scale."""
+    gated = (y * F.silu(z)).unflatten(-1, (groups, -1))
+    return rms_norm(gated, gamma.reshape(groups, -1), eps).flatten(-2)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SiLU of the depthwise causal conv1d of x (b, s, c) with w (width, c)
+    and the bias b (c), in x's dtype."""
+    width, c = w.shape
+    pad = F.pad(x, (0, 0, width - 1, 0)).transpose(1, 2)          # (b, c, s+w-1)
+    out = F.conv1d(pad, w.t().reshape(c, 1, width).to(x.dtype), groups=c)
+    return F.silu(out.transpose(1, 2) + b.to(x.dtype))
+
+
 def rms_norm_spec(d: int) -> ParamSpec:
     return ParamSpec((d,), (None,), init="zeros")   # gamma stored as (1+g)
 

@@ -2,12 +2,19 @@
 
 The port of ``repro.models.ssm``, with its parameter names and layouts.
 The state-space-dual algorithm runs over sequence chunks, the state carried
-across chunks in fp32.  On the card a prefill's scan is one launch a layer
-of the hand-written kernel (``kernels/ssd_scan``, ``csrc/ssd_scan.cu``);
-the plain version, which the CPU, fp32, ``meta`` tensors and training take,
-is a Python loop over the chunks (the reference's ``lax.scan``) whose work
-within a chunk is products (``torch.einsum``).  Decode is the O(1)-state
-recurrence.
+across chunks in fp32.  On the card a prefill's mixer is, beside its two
+products, three launches a layer of hand-written kernels: ``ssm_conv_in``
+(``kernels/ssm_mixer``, ``csrc/ssm_mixer.cu``: the causal conv, SiLU, dt
+and dt A from the in_proj output read in place, written as the scan reads
+them), the scan (``kernels/ssd_scan``, ``csrc/ssd_scan.cu``) and
+``ssm_gated_norm`` (the skip, the gate and the grouped RMS norm).  Each is
+taken where its route names it from what the inputs show
+(``ssm_mixer.ops.mixer_route``: 16-bit CUDA tensors off a mesh at the
+compiled shapes with no gradient needed; ``ssd_scan.ops.scan_route``);
+elsewhere (the CPU, fp32, ``meta`` tensors, training, a mesh) the plain
+version: PyTorch steps before and after the scan, and a Python loop over
+the chunks whose work within a chunk is products (``torch.einsum``).
+Decode is the O(1)-state recurrence, in PyTorch.
 
 Shapes: d_inner = expand*d_model, heads = d_inner/64 (headdim p=64), state
 n = cfg.ssm_state, and ``groups`` groups of B and C (1, the reference's
@@ -24,7 +31,9 @@ The scan (and the decode recurrence) is the region ``ssm.scan``, nested in
 ``ssm.mixer``, which covers the rest of the mixer
 (:func:`repro_torch.obs.region`); each scan counts its chunks on
 ``ssm_scan_chunks_total``, and those the kernel covered also on
-``ssm_scan_kernel_chunks_total`` (:func:`repro_torch.obs.regions.count`).
+``ssm_scan_kernel_chunks_total``; each prefill mixer counts one on
+``ssm_mixer_layers_total``, and on ``ssm_mixer_kernel_layers_total`` where
+it took the two mixer kernels (:func:`repro_torch.obs.regions.count`).
 """
 from __future__ import annotations
 
@@ -38,7 +47,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.distributed.sharding import gather_dims, lc, on_shards, whole_grad
 from repro_torch.kernels.ssd_scan.ops import scan_route, ssd_scan_op
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-from repro_torch.models.layers import ParamSpec, dense, rms_norm
+from repro_torch.kernels.ssm_mixer.ops import (mixer_route, scan_inputs, ssm_conv_in_op,
+                                               ssm_gated_norm_op)
+from repro_torch.models.layers import ParamSpec, causal_conv, dense, gated_norm
 from repro_torch.obs import region
 from repro_torch.obs.regions import count
 
@@ -90,15 +101,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     """Depthwise causal conv1d. x: (b, s, c); w: (width, c).  On a mesh each
     rank convolves its own rows whole (DTensor's convolution rule keeps the
     groups count of the whole channel dim where it shards the weight's)."""
-    return on_shards(_causal_conv_rows, (x, w, b), (("batch",), (None,), (None,)),
+    return on_shards(causal_conv, (x, w, b), (("batch",), (None,), (None,)),
                      (("batch",),))
-
-
-def _causal_conv_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    width, c = w.shape
-    pad = F.pad(x, (0, 0, width - 1, 0)).transpose(1, 2)          # (b, c, s+w-1)
-    out = F.conv1d(pad, w.t().reshape(c, 1, width).to(x.dtype), groups=c)
-    return F.silu(out.transpose(1, 2) + b.to(x.dtype))
 
 
 def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -155,13 +159,11 @@ def _merge_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return whole_grad(merged, (-1,), unit=heads)
 
 
-def _mixer_inputs(params: Dict, cfg: ModelConfig, x: torch.Tensor, groups: int):
-    """The projections, the causal conv and dt: (z, xh (b, s, h, p), xdt,
-    dA, B, C (b, s, groups, n), the conv's raw input (b, s, c))."""
+def _mixer_inputs(params: Dict, cfg: ModelConfig, zxbcdt: torch.Tensor, groups: int):
+    """The plain causal conv and dt from the in_proj output: (z, xh (b, s,
+    h, p), xdt, dA, B, C (b, s, groups, n), the conv's raw input (b, s, c))."""
     d_inner, heads, headdim, n = _dims(cfg)
     gn = groups * n
-    b, s, _ = x.shape
-    zxbcdt = dense(x, params["in_proj"])
     z, xs, B, C, dt = _split_proj(cfg, zxbcdt, groups)
     xbc_raw = torch.cat([xs, B, C], dim=-1)
     xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
@@ -169,24 +171,21 @@ def _mixer_inputs(params: Dict, cfg: ModelConfig, x: torch.Tensor, groups: int):
     dt = F.softplus(dt.float() + params["dt_bias"].float())       # (b, s, h)
     A = -torch.exp(params["a_log"].float())                       # (h,)
     xh = lc(_heads(xs, heads, headdim), ("batch", None, "ssm_heads", None))
-    xdt = (xh.float() * dt[..., None]).to(x.dtype)
+    xdt = (xh.float() * dt[..., None]).to(xh.dtype)
     dA = lc(dt * A, ("batch", None, "ssm_heads"))                # (b, s, h)
     return z, xh, xdt, dA, _by_group(B, groups), _by_group(C, groups), xbc_raw
 
 
-def _gated_norm(params: Dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
-                groups: int) -> torch.Tensor:
-    """The RMS norm of y * silu(z), over each group's channels."""
-    gated = (y * F.silu(z)).unflatten(-1, (groups, -1))
-    return rms_norm(gated, params["norm"].reshape(groups, -1), cfg.norm_eps).flatten(-2)
-
-
-def _mixer_out(params: Dict, cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
-               xh: torch.Tensor, z: torch.Tensor, groups: int) -> torch.Tensor:
+def _mixer_gate(params: Dict, cfg: ModelConfig, y: torch.Tensor, xh: torch.Tensor,
+                z: torch.Tensor, groups: int) -> torch.Tensor:
+    """The plain skip, gate and grouped norm of the scan's y (b, s, h, p):
+    out_proj's input (b, s, h p)."""
     heads = y.shape[2]
-    y = y + xh * params["d_skip"].to(x.dtype)[None, None, :, None]
-    y = _merge_heads(y, heads)
-    return dense(_gated_norm(params, cfg, y, z, groups), params["out_proj"])
+    y = y + xh * params["d_skip"].to(y.dtype)[None, None, :, None]
+    return gated_norm(_merge_heads(y, heads), z, params["norm"], groups, cfg.norm_eps)
+
+
+_MIXER_PARAMS = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "norm")
 
 
 def ssm_mixer(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -201,7 +200,16 @@ def ssm_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor, groups: int = 1
     ``chunk`` as the module's docstring has them."""
     d_inner, heads, headdim, n = _dims(cfg)
     with region("ssm.mixer"):
-        z, xh, xdt, dA, B, C, xbc_raw = _mixer_inputs(params, cfg, x, groups)
+        zxbcdt = dense(x, params["in_proj"])
+        kernels = mixer_route(zxbcdt, *(params[k] for k in _MIXER_PARAMS), groups) == "kernels"
+        if kernels:
+            xbc, dA, xh, conv = ssm_conv_in_op(zxbcdt, params["conv_w"], params["conv_b"],
+                                               params["dt_bias"], params["a_log"], d_inner)
+            xdt, dA, B, C = scan_inputs(xbc, dA, d_inner, groups)
+        else:
+            z, xh, xdt, dA, B, C, xbc_raw = _mixer_inputs(params, cfg, zxbcdt, groups)
+            # a copy: a view would hold the whole (b, s, c) conv input alive
+            conv = xbc_raw[:, -(cfg.ssm_conv - 1):, :].clone()
         state0 = torch.zeros((x.shape[0], heads, headdim, n), dtype=torch.float32,
                              device=x.device)
         # on a mesh each rank scans its own rows and heads (the scan's products
@@ -212,9 +220,16 @@ def ssm_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor, groups: int = 1
         y, state = on_shards(scan, (xdt, dA, B, C, state0),
                              (hx, ("batch", None, "ssm_heads"), rows, rows, sx), (hx, sx))
         y = lc(y, ("batch", None, "ssm_heads", None))
-        out = _mixer_out(params, cfg, x, y, xh, z, groups)
-    # a copy: a view would hold the whole (b, s, c) conv input alive
-    return out, {"state": state, "conv": xbc_raw[:, -(cfg.ssm_conv - 1):, :].clone()}
+        if kernels:
+            gated = ssm_gated_norm_op(y, xh, zxbcdt, params["d_skip"], params["norm"], groups,
+                                      cfg.norm_eps)
+        else:
+            gated = _mixer_gate(params, cfg, y, xh, z, groups)
+        out = dense(gated, params["out_proj"])
+    count("ssm_mixer_layers_total", 1)
+    if kernels:
+        count("ssm_mixer_kernel_layers_total", 1)
+    return out, {"state": state, "conv": conv}
 
 
 # ---------------------------------------------------------------------------
@@ -268,5 +283,5 @@ def ssm_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                                  (hx, ("batch", "ssm_heads", None, None)))
         y = y + xh * params["d_skip"].float()[None, :, None]
         y = _merge_heads(y, heads).unsqueeze(1).to(x.dtype)
-        out = dense(_gated_norm(params, cfg, y, z, groups), params["out_proj"])
+        out = dense(gated_norm(y, z, params["norm"], groups, cfg.norm_eps), params["out_proj"])
     return out, {"state": state, "conv": window[:, 1:]}

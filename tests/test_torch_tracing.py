@@ -465,6 +465,8 @@ def _counters():
         REGISTRY.counter("moe_experts_read_total", step=step).inc(read)
     REGISTRY.counter("ssm_scan_chunks_total", step="prefill").inc(16)
     REGISTRY.counter("ssm_scan_kernel_chunks_total", step="prefill").inc(12)
+    REGISTRY.counter("ssm_mixer_layers_total", step="prefill").inc(81)
+    REGISTRY.counter("ssm_mixer_kernel_layers_total", step="prefill").inc(81)
 
 
 #: the fabricated step replay's kernels: one flash backward call (its three
@@ -494,6 +496,7 @@ READERS = {
     "flash_bwd_roofline.train": (T, _flash_bwd_roofline()),
     # reads the counters alone, whatever the cell
     "ssm_scan_kernel_pct.prefill": (D, 75.0),
+    "ssm_mixer_kernel_pct.prefill": (D, 100.0),
 }
 
 
